@@ -1,19 +1,19 @@
-"""cuda_flashattention_tpu — a TPU-native attention framework.
+"""cuda_flashattention_tpu — an attention framework in JAX for the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the CUDA
+A from-scratch JAX/XLA/Pallas design of the capabilities of the CUDA
 reference ladder (terryye/cuda_FlashAttention): exact-attention golden
-oracle, FlashAttention-1/2 forward + backward as Pallas TPU kernels,
-quantized (FP8/INT8) KV caches with dequant fused into the kernels, and
-ring (sequence-parallel) attention over a `jax.sharding.Mesh` using
-`jax.lax.ppermute` instead of MPI/NCCL.
+oracle, FlashAttention-2 forward + backward as Pallas kernels on the
+Triton route, quantized (FP8/INT8) KV caches with dequant fused into the
+kernels, and ring (sequence-parallel) attention over a
+`jax.sharding.Mesh` using `jax.lax.ppermute` instead of MPI/NCCL.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1):
 
   L0 oracle      ops.naive              (ref: src/util/naive_attention.h)
   L1 helpers     utils.testing, ops.common
                                         (ref: src/util/{cuda,attention}_helper.h)
-  L2 kernels     ops.flash_fwd, ops.flash_bwd, ops.fa1, ops.quant
-                                        (ref: src/0{1,2}_*/**.cu)
+  L2 kernels     ops.flash_fwd, ops.flash_bwd, ops.decode, ops.quant
+                                        (ref: src/02_*/**.cu)
   L3 host API    ops.attention (custom_vjp), ops.decode
                                         (ref: host wrappers in *.cu)
   L4 distributed parallel.ring, parallel.mesh
@@ -25,7 +25,6 @@ Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
 __version__ = "0.1.0"
 
 from cuda_flashattention_tpu.ops.attention import flash_attention, mha
-from cuda_flashattention_tpu.ops.fa1 import fa1_attention
 from cuda_flashattention_tpu.ops.decode import decode_attention
 from cuda_flashattention_tpu.ops.kv_cache import (
     KVCache,
@@ -54,7 +53,6 @@ from cuda_flashattention_tpu.ops.quant import (
 __all__ = [
     "flash_attention",
     "mha",
-    "fa1_attention",
     "decode_attention",
     "paged_decode_attention",
     "PagedKVCache",

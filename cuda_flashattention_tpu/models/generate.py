@@ -3,12 +3,11 @@
 The serving loop that ties the framework together end-to-end: FA2 prefill
 fills the (optionally FP8/INT8-quantized) caches, then a `lax.scan` of
 single-token decode steps reads them through the fused-dequant decode
-kernel. No reference analog (the CUDA ladder has no inference loop); this
-is north-star surface (BASELINE.json: decode tokens/s vs context).
+kernel. No reference analog (the CUDA ladder has no inference loop).
 
-TPU-shaped by construction: the cache is preallocated (static shapes),
-the scan is one compiled program (no per-token dispatch from Python), and
-sampling is functional (a threaded PRNG key).
+The cache is preallocated (static shapes), the scan is one compiled
+program (no per-token dispatch from Python), and sampling is functional
+(a threaded PRNG key).
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ def _sample(logits: jnp.ndarray, key, temperature: float) -> jnp.ndarray:
 @functools.partial(
     jax.jit,
     static_argnames=("cfg", "max_new_tokens", "max_len", "qtype",
-                     "temperature", "quantize_q"),
+                     "temperature"),
 )
 def generate(
     params,
@@ -48,16 +47,13 @@ def generate(
     qtype: Optional[str] = None,
     temperature: float = 0.0,
     key: Optional[jax.Array] = None,
-    quantize_q: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Generate continuations. prompt [B, T] int32 → (tokens [B, T+N],
     logits_last [B, V]).
 
     qtype None/"int8"/"fp8"/"mixed" selects the cache storage; decode
     reads it through the fused-dequant kernel either way. temperature 0
-    = greedy. quantize_q=True additionally runs decode QKᵀ on the MXU's
-    2× int8 path for int8-K caches (per-head int8 Q — the GQA-serving
-    win; see ops/decode.py).
+    = greedy.
     """
     b, t = prompt.shape
     max_len = max_len or (t + max_new_tokens)
@@ -77,8 +73,7 @@ def generate(
     # with the KV caches for HBM for the whole generation.
     def step(carry, _):
         token, position, caches, key, _ = carry
-        logits, caches = decode_one(params, token, position, cfg, caches,
-                                    quantize_q=quantize_q)
+        logits, caches = decode_one(params, token, position, cfg, caches)
         key, sub = jax.random.split(key)
         nxt = _sample(logits, sub, temperature)
         return (nxt, position + 1, caches, key, logits), token

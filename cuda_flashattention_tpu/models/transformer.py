@@ -327,12 +327,10 @@ def prefill_chunked(params: Params, tokens: jnp.ndarray,
 
 
 def decode_one(params: Params, token: jnp.ndarray, position,
-               cfg: TransformerConfig, caches: Tuple[KVCache, ...],
-               quantize_q: bool = False):
+               cfg: TransformerConfig, caches: Tuple[KVCache, ...]):
     """One autoregressive step: token [B] → (logits [B, V], caches).
     Attention reads the (possibly quantized) caches via the decode
-    kernel; `quantize_q` routes int8-K caches through the 2× int8-MXU
-    QKᵀ path (ops/decode.py)."""
+    kernel (ops/decode.py)."""
     b = token.shape[0]
     x = params["embed"][token].astype(cfg.dtype)  # [B, D]
     positions = jnp.full((1,), position, jnp.int32)
@@ -348,8 +346,7 @@ def decode_one(params: Params, token: jnp.ndarray, position,
                              v.transpose(0, 2, 1, 3))
         new_caches.append(cache)
         # q[:, 0] is already (B, H, d) — the decode kernel's layout
-        o, _ = decode_step(q[:, 0], cache, window=cfg.window,
-                           quantize_q=quantize_q)
+        o, _ = decode_step(q[:, 0], cache, window=cfg.window)
         x = x + (o.reshape(b, cfg.d_q) @ layer["wo"]).astype(x.dtype)
         x = _mlp_block(layer, x[:, None, :])[:, 0]
     x = rms_norm(x, params["final_norm"])

@@ -23,33 +23,32 @@ from cuda_flashattention_tpu.ops.flash_fwd import flash_attention_forward
 
 
 @functools.partial(
-    jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9, 10))
+    jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9))
 def _flash_attention(q, k, v, q_seg, kv_seg, scale, causal, window,
-                     kv_offset, block_sizes, interpret):
+                     kv_offset, block_sizes):
     o, _ = flash_attention_forward(
         q, k, v, scale=scale, causal=causal, window=window,
-        kv_offset=kv_offset, block_sizes=block_sizes, interpret=interpret,
+        kv_offset=kv_offset, block_sizes=block_sizes,
         q_segment_ids=q_seg, kv_segment_ids=kv_seg)
     return o
 
 
 def _fwd(q, k, v, q_seg, kv_seg, scale, causal, window, kv_offset,
-         block_sizes, interpret):
+         block_sizes):
     o, lse = flash_attention_forward(
         q, k, v, scale=scale, causal=causal, window=window,
-        kv_offset=kv_offset, block_sizes=block_sizes, interpret=interpret,
+        kv_offset=kv_offset, block_sizes=block_sizes,
         q_segment_ids=q_seg, kv_segment_ids=kv_seg)
     return o, (q, k, v, q_seg, kv_seg, o, lse)
 
 
-def _bwd(scale, causal, window, kv_offset, block_sizes, interpret, res,
-         do):
+def _bwd(scale, causal, window, kv_offset, block_sizes, res, do):
     q, k, v, q_seg, kv_seg, o, lse = res
-    # GQA runs natively in the backward kernels: the dKdV grid carries a
-    # group axis accumulating all query heads that share a KV head.
+    # GQA runs natively in the backward kernels: each dK/dV program loops
+    # over all query heads that share its KV head.
     dq, dk, dv = flash_attention_backward(
         q, k, v, o, lse, do, scale=scale, causal=causal, window=window,
-        kv_offset=kv_offset, block_sizes=block_sizes, interpret=interpret,
+        kv_offset=kv_offset, block_sizes=block_sizes,
         q_segment_ids=q_seg, kv_segment_ids=kv_seg)
     # segment ids are integer inputs: no cotangent (None = symbolic zero)
     return dq, dk, dv, None, None
@@ -67,7 +66,6 @@ def flash_attention(
     window: int = 0,
     kv_offset: int = 0,
     block_sizes: Optional[BlockSizes] = None,
-    interpret: Optional[bool] = None,
     q_segment_ids: Optional[jnp.ndarray] = None,
     kv_segment_ids: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
@@ -80,11 +78,10 @@ def flash_attention(
     sequences via
     `q_segment_ids`/`kv_segment_ids` [B, N] (cross-segment attention
     masked, fwd and bwd), bf16/fp32 inputs with fp32 accumulation, and
-    arbitrary (non-tile-divisible) sequence lengths.
+    arbitrary (non-tile-divisible) sequence lengths and head dims.
     """
     return _flash_attention(q, k, v, q_segment_ids, kv_segment_ids, scale,
-                            causal, window, kv_offset, block_sizes,
-                            interpret)
+                            causal, window, kv_offset, block_sizes)
 
 
 def mha(
@@ -93,12 +90,10 @@ def mha(
     v: jnp.ndarray,
     scale: Optional[float] = None,
     causal: bool = False,
-    interpret: Optional[bool] = None,
 ) -> jnp.ndarray:
     """Convenience wrapper in [B, N, H, d] (sequence-major) layout —
     the layout models typically carry activations in."""
     o = flash_attention(
         q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-        v.transpose(0, 2, 1, 3), scale=scale, causal=causal,
-        interpret=interpret)
+        v.transpose(0, 2, 1, 3), scale=scale, causal=causal)
     return o.transpose(0, 2, 1, 3)

@@ -1,24 +1,24 @@
 """Single-token decode attention over a (possibly quantized) KV cache.
 
-North-star path (BASELINE.json configs: "Ring attention decode: 1M-token
-context... decode tokens/s vs context length, FP8 KV"). No reference
-analog — the CUDA ladder is prefill-only — but this is where the quantized
-cache pays: decode attention is HBM-bandwidth-bound (every step streams
-the whole cache through VMEM once), so int8/fp8 KV cuts the bytes 4× and
-scales tokens/s accordingly.
+No reference analog (the CUDA ladder is prefill-only). Decode attention
+is bound by memory bandwidth: every step reads the whole live cache once,
+so int8/fp8 KV halves the bytes, and only pays when the dequant happens
+on the way from memory to the tensor cores.
 
-Design:
-  * q for one step is [B, H, d]; for GQA it is regrouped to
-    [B, Hkv, G, d] (G = H/Hkv query heads sharing a KV head) so the MXU
-    sees a (G, d)·(d, Bk) matmul instead of degenerate rank-1 products.
-  * grid (B, Hkv, max_blocks): batch/head parallel, KV blocks sequential
-    with the same online-softmax VMEM carry as the prefill kernel.
-  * Dynamic context length via scalar prefetch: `lengths[B]` is prefetched
-    (pltpu.PrefetchScalarGridSpec) and the K/V BlockSpec index maps CLAMP
-    the block index to the last valid block — past-the-end grid steps
-    re-reference the same block, which the Pallas pipeline recognises and
-    skips the DMA, and `@pl.when` skips their compute. The cache can be
-    over-allocated to max_len with near-zero cost for short contexts.
+Design (split-K, as in JAX's own Pallas GPU decode kernel):
+  * q for one step is [B, H, d]; GQA regroups it to [B, Hkv, G, d], so
+    the G query heads sharing a KV head read that head's cache once as
+    one (G, d)·(d, block_k) product. G is padded to Triton's dot minimum.
+  * The grid is (n_splits, B, Hkv): each program takes a contiguous
+    split of the cache, reads its sequence's live length and window start
+    itself, loops over the cache tiles of its split that hold visible
+    tokens, and writes a partial (o, lse). XLA merges the partials in log
+    space (ops/common.merge_partials). The split count targets two waves
+    of programs on the card's streaming multiprocessors, so short
+    batches still fill the card and keep enough loads in flight.
+  * K and V are loaded in their storage dtype and cast in-kernel, each
+    by its own dtype (a mixed int8-K / fp8-V cache needs no special
+    path); per-token scales multiply S's and P's columns.
 """
 
 from __future__ import annotations
@@ -28,225 +28,109 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from cuda_flashattention_tpu.ops.common import (
-    FP8_SHIFT,
+    LN2,
+    LOG2E,
     NEG_INF,
     cdiv,
-    default_interpret,
-    dequant_cast,
-    fp8_shift_cast,
+    check_triton_shape,
+    dot_precision,
+    merge_partials,
+    next_pow2,
+    pad_head_dim,
     pad_to_block,
-    quantize_q_per_head,
     resolve_scale,
-    round_up,
+    triton_call_kwargs,
 )
 
+# Programs to aim for: four waves on the H100's 132 streaming
+# multiprocessors. With 64-token tiles and 4 pipeline stages this
+# measured fastest at 131k context (PERF.md, "Kernel decisions": int8
+# 0.565 → 0.408 ms against two waves of 128-token tiles, 2 stages).
+TARGET_PROGRAMS = 528
+NUM_STAGES = 4
 
 
-def window_block_offset(length, win, block: int, window_cap: int):
-    """Window-relative -> absolute first block, with the static hard cap.
-
-    THE single implementation shared by both the host index maps and the
-    kernel bodies of contiguous AND paged decode (4 call sites): the
-    index map decides which block is DMA'd while the kernel decides
-    which columns are masked — computing (first, capped_win) in one
-    place makes it impossible for the fetch and the mask to diverge.
-    Returns (first_block, capped_win); `window_cap` 0 means uncapped.
-    """
-    if window_cap:
-        # the static `window` sizes the O(window) grid, so it is a HARD
-        # CAP on per-seq values — without it a windows[i] > window would
-        # silently skip the newest in-window blocks
-        win = jnp.minimum(win, window_cap)
-    return jnp.maximum(0, (length - win) // block), win
+def decode_block_k(max_n: int, block_k: Optional[int] = None) -> int:
+    """The cache tile: `block_k` (default 64) rounded to a power of two,
+    shrunk until it divides the cache length when a power of two ≥ 16
+    does, so the cache needs no padding copy per step."""
+    bk = next_pow2(block_k or 64)
+    bk = max(16, min(bk, next_pow2(max_n)))
+    while bk > 16 and max_n % bk:
+        bk //= 2
+    return bk
 
 
-def attend_block(q_ref, k_ref, v_ref, k_scale_ref, v_scale_ref,
-                 m_s, l_s, acc_s, *, col0, length, win, scale: float,
-                 quantized: bool, k_fast: bool, v_fast: bool,
-                 sq_ref=None):
-    """One online-softmax update of the decode state against one cache
-    block — THE shared kernel body of contiguous decode (grid over
-    clamped cache blocks) and paged decode (grid over gathered physical
-    pages, ops/paged.py). `col0` is the block's first absolute token,
-    `length` the live context, `win` the window (None = unbounded) — all
-    dynamic scalars. `sq_ref` (quantize_q): (G,1) per-head σ_q·scale
-    column; Q and K are int8 and QKᵀ runs at the MXU's 2× int8 rate with
-    NO K cast — the cast was the exposed cost in GQA decode, where the
-    skinny matmuls leave nothing to hide it under. `k_fast`/`v_fast`
-    flag the fp8 5-op shift-cast per array (the host folds 2^120 into
-    the matching scale rows), so a MIXED int8-K/fp8-V cache gets the
-    int8 matmul on K and the cheap cast on V independently."""
-    q = q_ref[0, 0]  # (G, d)
-    qq = sq_ref is not None
-    cd = jnp.bfloat16 if qq else q.dtype
-    k = k_ref[0, 0]
-    v = v_ref[0, 0]
+def decode_splits(max_n: int, block_k: int,
+                  programs: int) -> Tuple[int, int]:
+    """(n_splits, tiles per split) for a cache of `max_n` tokens, where
+    `programs` = B·Hkv programs exist per split."""
+    n_tiles = cdiv(max_n, block_k)
+    n_splits = max(1, min(cdiv(TARGET_PROGRAMS, programs), n_tiles))
+    per_split = cdiv(n_tiles, n_splits)
+    return cdiv(n_tiles, per_split), per_split
+
+
+def _decode_kernel(*refs, scale2: float, block_k: int, tiles_per_split: int,
+                   quantized: bool):
+    q_ref, k_ref, v_ref, len_ref, start_ref, *rest = refs
+    ks_ref = vs_ref = None
     if quantized:
-        if not qq:  # qq: K stays int8 for the 2x-rate MXU matmul
-            # 5-op shift cast for fp8 (2^120 folded into the scale rows,
-            # ops/common.py fp8_shift_cast — dequant was what made fp8
-            # decode trail int8 at long context, VERDICT r1 #2)
-            k = fp8_shift_cast(k) if k_fast else dequant_cast(k, cd)
-        v = fp8_shift_cast(v) if v_fast else dequant_cast(v, cd)
-    if qq:
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32) * sq_ref[0, 0]  # (G,1) σ_q·scale column
-    else:
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) * scale  # (G, Bk)
-    if quantized:
-        # lane-major (1, Bk) per-token scales folded into S/P — the
-        # host forces Bk % 128 == 0 for quantized caches so this
-        # layout is always legal (docs/MEMO.md #12)
-        s = s * k_scale_ref[0, 0]
-    # mask the tail of the last valid block (dynamic length) and, with a
-    # window, the stale prefix of the first visible block
-    col = (jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-           + col0)
-    ok = col < length
-    if win is not None:
-        ok = jnp.logical_and(ok, col >= length - win)
-    s = jnp.where(ok, s, NEG_INF)
+        ks_ref, vs_ref, *rest = rest
+    o_ref, lse_ref = rest
 
-    m_prev = m_s[:, :1]
-    m_next = jnp.maximum(m_prev, jnp.max(s, axis=-1, keepdims=True))
-    p = jnp.exp(s - m_next)
-    p = jnp.where(s > NEG_INF * 0.5, p, 0.0)
-    alpha = jnp.exp(m_prev - m_next)
-    l_s[...] = jnp.broadcast_to(
-        l_s[:, :1] * alpha + jnp.sum(p, axis=-1, keepdims=True),
-        l_s.shape)
-    m_s[...] = jnp.broadcast_to(m_next, m_s.shape)
-    if quantized:
-        p = p * v_scale_ref[0, 0]
-    acc_s[...] = acc_s[...] * alpha + jax.lax.dot_general(
-        p.astype(cd), v, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    split = pl.program_id(0)
+    q = q_ref[...]                       # (G_pad, d)
+    cd = q.dtype
+    prec = dot_precision(cd)
+    length = len_ref[...]
+    start = start_ref[...]
+    split_len = tiles_per_split * block_k
+    lo_tok = jnp.maximum(start, split * split_len)
+    hi_tok = jnp.minimum(length, (split + 1) * split_len)
+    bk = jnp.int32(block_k)
+    lo = lax.div(lo_tok, bk)
+    hi = jnp.where(hi_tok > lo_tok, lax.div(hi_tok + (block_k - 1), bk), lo)
 
+    def body(j, carry):
+        acc, m, l = carry
+        first = pl.multiple_of(j * block_k, block_k)
+        kv_slice = pl.ds(first, block_k)
+        k = k_ref[kv_slice, :].astype(cd)
+        s = pl.dot(q, k, trans_b=True, precision=prec)     # (G_pad, bk)
+        if quantized:
+            s = s * (ks_ref[kv_slice] * scale2)[None, :]
+        else:
+            s = s * scale2
+        cols = first + jnp.arange(block_k, dtype=jnp.int32)
+        ok = ((cols >= start) & (cols < length))[None, :]
+        s = jnp.where(ok, s, NEG_INF)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        p = jnp.where(ok, jnp.exp2(s - m_new[:, None]), 0.0)
+        alpha = jnp.exp2(m - m_new)
+        l = l * alpha + jnp.sum(p, axis=1)
+        if quantized:
+            p = p * vs_ref[kv_slice][None, :]
+        v = v_ref[kv_slice, :].astype(cd)
+        acc = acc * alpha[:, None] + pl.dot(p.astype(cd), v, precision=prec)
+        return acc, m_new, l
 
-def decode_epilogue(o_ref, lse_ref, m_s, l_s, acc_s):
-    """Shared decode epilogue: normalise and emit natural-log LSE."""
-    l = l_s[:, :1]
-    l_safe = jnp.where(l == 0.0, 1.0, l)
-    o_ref[0, 0] = (acc_s[...] / l_safe).astype(o_ref.dtype)
-    lse_ref[0, 0] = jnp.where(l == 0.0, NEG_INF,
-                              m_s[:, :1] + jnp.log(l_safe))
+    g = q.shape[0]
+    acc, m, l = lax.fori_loop(
+        lo, hi, body,
+        (jnp.zeros(q.shape, jnp.float32), jnp.full((g,), NEG_INF, jnp.float32),
+         jnp.zeros((g,), jnp.float32)))
+    empty = l == 0.0
+    l_safe = jnp.where(empty, 1.0, l)
+    o_ref[...] = acc / l_safe[:, None]
+    lse_ref[...] = jnp.where(empty, NEG_INF, (m + jnp.log2(l_safe)) * LN2)
 
 
-def _decode_kernel(
-    len_ref,  # scalar prefetch: lengths [B] int32
-    win_ref,  # scalar prefetch: per-seq windows [B] int32 (or None)
-    *refs,
-    scale: float,
-    block_k: int,
-    quantized: bool,
-    k_fast: bool,
-    v_fast: bool,
-    qq: bool,
-    windowed: bool,
-    window_cap: int,
-):
-    refs = list(refs)
-    if quantized:
-        (q_ref, k_ref, v_ref, k_scale_ref, v_scale_ref) = refs[:5]
-        refs = refs[5:]
-    else:
-        (q_ref, k_ref, v_ref) = refs[:3]
-        refs = refs[3:]
-        k_scale_ref = v_scale_ref = None
-    sq_ref = None
-    if qq:
-        sq_ref = refs[0]
-        refs = refs[1:]
-    (o_ref, lse_ref, m_s, l_s, acc_s) = refs
-
-    b = pl.program_id(0)
-    ik = pl.program_id(2)
-    nblk = pl.num_programs(2)
-    length = len_ref[b]
-    win = None
-    if windowed:
-        # windowed: the GRID only spans ceil(window/bk)+1 blocks; each
-        # step addresses absolute cache block first+ik (the host's index
-        # maps share window_block_offset), so work is O(window) not
-        # O(max_len)
-        first, win = window_block_offset(length, win_ref[b], block_k,
-                                         window_cap)
-        ik = first + ik
-
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        m_s[...] = jnp.full_like(m_s, NEG_INF)
-        l_s[...] = jnp.zeros_like(l_s)
-        acc_s[...] = jnp.zeros_like(acc_s)
-
-    visible = ik * block_k < length
-
-    @pl.when(visible)
-    def _compute():
-        attend_block(q_ref, k_ref, v_ref, k_scale_ref, v_scale_ref,
-                     m_s, l_s, acc_s, col0=ik * block_k, length=length,
-                     win=win, scale=scale, quantized=quantized,
-                     k_fast=k_fast, v_fast=v_fast, sq_ref=sq_ref)
-
-    @pl.when(pl.program_id(2) == nblk - 1)
-    def _epilogue():
-        decode_epilogue(o_ref, lse_ref, m_s, l_s, acc_s)
-
-
-def default_decode_block_k(k_dtype, v_dtype, q_dtype, qq: bool,
-                           window: int, has_windows: bool,
-                           max_n: int) -> int:
-    """Resolve `block_k=None`: 8192 suits bf16/int8 at any context; fp8
-    caches at long context prefer WIDE 32k blocks, which amortise the
-    shift-cast and per-block bookkeeping over 4x the bytes (measured on
-    v5e @1M ctx: 112 -> 121 tok/s). Only on the bf16 shift-cast path
-    (bf16 q, or quantize_q): fp32-q fp8 decode dequants blocks to fp32
-    and a 32k block overflows VMEM (79.8 MiB > 64, caught driving the
-    package on-chip). Windowed serving keeps the narrow default — the
-    window grid spans cdiv(window, block_k)+1 blocks, so a 4x-wide block
-    multiplies the bytes streamed per step ~4x for any window smaller
-    than it. The measuring autotuner
-    (utils/autotune.autotune_decode_block_k) overrides per shape when
-    invoked.
-
-    `max_n` is the cache CAPACITY (the only statically known size — the
-    live length is a traced value), so a big fp8 cache serving a still-
-    short sequence streams one wide partial block per step (~4x the bytes
-    of the 8k default) until the context grows into it. Workloads
-    dominated by short live contexts in large caches should pass an
-    explicit block_k=8192.
-
-    At ≥256k capacity the fp8-ish width doubles again to 65536: measured
-    at 1M ctx on v5e, the mixed int8-K/fp8-V + quantize_q configuration
-    gains 133.4 → 137.1 tok/s (pure fp8 is flat, 133.2 vs 133.4; a 128k
-    block fails to compile — VMEM). 131072-capacity caches keep 32768:
-    a 64k block is half such a cache per step."""
-    fp8ish = (k_dtype == jnp.float8_e4m3fn or v_dtype == jnp.float8_e4m3fn)
-    fast_cast = q_dtype == jnp.bfloat16 or qq
-    no_window = int(window or 0) == 0 and not has_windows
-    if fp8ish and fast_cast and no_window:
-        if max_n >= 262144:
-            return 65536
-        if max_n >= 65536:
-            return 32768
-    return 8192
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scale", "block_k", "window", "quantize_q",
-                     "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("scale", "block_k", "window"))
 def decode_attention(
     q: jnp.ndarray,
     k: jnp.ndarray,
@@ -258,30 +142,23 @@ def decode_attention(
     block_k: Optional[int] = None,
     window: int = 0,
     windows: Optional[jnp.ndarray] = None,
-    quantize_q: bool = False,
-    interpret: Optional[bool] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """One decode step: q [B,H,d] attends to cache k/v [B,Hkv,max_N,d].
 
-    `quantize_q=True` (int8 KV only): per-(batch,head) int8 Q so QKᵀ
-    runs on the MXU's 2× int8 path with NO K dequant cast — the win is
-    GQA serving, whose skinny matmuls can't hide the cast (fp8 caches
-    ignore the flag: their cast IS the dequant, nothing to amortise).
-    Q rounding error ~0.4% — same budget note as flash_attention_forward.
+    `lengths` [B] int32 gives each sequence's live context; cache rows at
+    or beyond a sequence's length are never read nor attended. Quantized
+    caches (int8 / fp8 per array) pass per-token scales [B,Hkv,max_N].
 
     `window` > 0 restricts attention to the last `window` live tokens
-    (sliding-window serving); off-window cache blocks are neither fetched
-    nor computed. `windows` [B] int32 optionally gives PER-SEQUENCE
-    dynamic windows (ring decode derives per-shard effective windows from
-    the shard offset — parallel/ring.py). When both are set, the static
-    `window` sizes the O(window) grid and is therefore a HARD CAP: each
-    effective window is min(windows[i], window). With `windows` alone
-    the grid stays O(max_len) and any per-seq value is honoured (one
-    ≥ its length means "no window").
+    (sliding-window serving); tiles before the window are not read.
+    `windows` [B] int32 optionally gives PER-SEQUENCE windows (ring
+    decode derives per-shard values from the shard offset —
+    parallel/ring.py); with both set each effective window is
+    min(windows[i], window). A window ≥ the length means no cut, one ≤ 0
+    means nothing is visible.
 
-    `lengths` [B] int32 gives each sequence's live context; cache rows at
-    or beyond a sequence's length are never read (clamped index maps) nor
-    attended (masked). Quantized caches pass per-token scales [B,Hkv,max_N].
+    `block_k` overrides the cache tile (see decode_block_k); the split
+    count follows from it and the number of programs (decode_splits).
 
     Returns (o [B,H,d], lse [B,H]) — LSE enables cross-shard combination
     for ring decode (parallel/ring.py).
@@ -292,140 +169,78 @@ def decode_attention(
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
     group = h // h_kv
     scale = resolve_scale(scale, d)
-    interpret = default_interpret() if interpret is None else interpret
     quantized = k_scale is not None
     if quantized and v_scale is None:
         raise ValueError("k_scale given without v_scale")
-    qq = bool(quantize_q) and quantized and k.dtype == jnp.int8
-    sq_in = None
-    out_dt = q.dtype
-    if qq:
-        q, sq = quantize_q_per_head(q, (-1,))                 # sq [B,H,1]
-        sq_in = (sq * scale).reshape(b, h_kv, group, 1)
 
-    # Regroup query heads under their KV head and pad the group dim to the
-    # fp32 sublane minimum (8) so tiles stay legal for tiny groups.
-    g_pad = max(8, group)
-    q_g = q.reshape(b, h_kv, group, d)
-    if g_pad != group:
-        q_g = jnp.pad(q_g, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-        if qq:
-            sq_in = jnp.pad(sq_in,
-                            ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
+    bk = decode_block_k(max_n, block_k)
+    splits, per_split = decode_splits(max_n, bk, b * h_kv)
+    # The cache is padded only when no legal tile divides it; every
+    # split's loop stops at its sequence's length, so no tile past the
+    # cache is ever read.
+    k_p = pad_to_block(pad_head_dim(k), 2, bk)
+    v_p = pad_to_block(pad_head_dim(v), 2, bk)
+    max_np, dp = k_p.shape[2], k_p.shape[3]
+    g_pad = max(16, next_pow2(group))
+    check_triton_shape((g_pad, dp), (bk, dp))
+    q_g = pad_head_dim(q).reshape(b, h_kv, group, dp)
+    q_g = jnp.pad(q_g, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
 
-    if block_k is None:
-        block_k = default_decode_block_k(
-            k.dtype, v.dtype, out_dt, qq, window, windows is not None,
-            max_n)
-    block_k = min(block_k, max(8, max_n))
-    if quantized and block_k % 128 != 0:
-        # 128-aligned blocks keep the fast lane-major scale layout
-        # (docs/MEMO.md #12); K/V pad to the block anyway
-        block_k = min(round_up(block_k, 128), round_up(max_n, 128))
-    k_p = pad_to_block(k, 2, block_k)
-    v_p = pad_to_block(v, 2, block_k)
-    max_np = k_p.shape[2]
-    nblk = max_np // block_k
+    lengths = jnp.broadcast_to(jnp.asarray(lengths, jnp.int32), (b,))
     window = int(window or 0)
-    windowed = window > 0 or windows is not None
-    if window:
-        # the window spans at most this many blocks (one straddler each
-        # side); the kernel offsets to the right absolute blocks.
-        # (windows-only callers keep the full grid: the per-seq values
-        # are dynamic, so the span can't bound the grid statically.)
-        nblk = min(nblk, cdiv(window, block_k) + 1)
-
-    lengths = jnp.asarray(lengths, jnp.int32).reshape(b)
-    if windowed:
-        win_arr = (jnp.asarray(windows, jnp.int32).reshape(b)
-                   if windows is not None
-                   else jnp.full((b,), window, jnp.int32))
+    if windows is not None:
+        win = jnp.broadcast_to(jnp.asarray(windows, jnp.int32), (b,))
+        if window:
+            win = jnp.minimum(win, window)
+    elif window:
+        win = jnp.full((b,), window, jnp.int32)
     else:
-        win_arr = jnp.zeros((b,), jnp.int32)  # prefetched but unused
+        win = None
+    starts = (jnp.zeros((b,), jnp.int32) if win is None
+              else jnp.clip(lengths - win, 0, lengths))
 
-    def clamp_ik(ik, len_ref, win_ref, bb):
-        last = jnp.maximum(pl.cdiv(len_ref[bb], block_k) - 1, 0)
-        if windowed:
-            # grid index is window-relative; offset to the absolute block
-            # via the SAME helper the kernel uses
-            first, _ = window_block_offset(len_ref[bb], win_ref[bb],
-                                           block_k, window)
-            ik = first + ik
-        return jnp.minimum(ik, last)
+    def head(s, bb, hh):
+        return (bb, hh, 0, 0)
 
-    def kv_index(bb, hh, ik, len_ref, win_ref):
-        return (bb, hh, clamp_ik(ik, len_ref, win_ref, bb), 0)
+    def seq(s, bb, hh):
+        return (bb,)
 
     in_specs = [
-        pl.BlockSpec((1, 1, g_pad, d),
-                     lambda bb, hh, ik, len_ref, win_ref: (bb, hh, 0, 0)),
-        pl.BlockSpec((1, 1, block_k, d), kv_index),
-        pl.BlockSpec((1, 1, block_k, d), kv_index),
+        pl.BlockSpec((None, None, g_pad, dp), head),
+        pl.BlockSpec((None, None, max_np, dp), head),
+        pl.BlockSpec((None, None, max_np, dp), head),
+        pl.BlockSpec((None,), seq),
+        pl.BlockSpec((None,), seq),
     ]
-    inputs = [q_g, k_p, v_p]
-    # fp8 shift-cast eligibility, PER ARRAY (a mixed int8-K/fp8-V cache
-    # flags only V): the cast target must be bf16 — q's dtype, or forced
-    # bf16 under quantize_q.
-    k_fast = (quantized and k.dtype == jnp.float8_e4m3fn
-              and q.dtype == jnp.bfloat16)
-    v_fast = (quantized and v.dtype == jnp.float8_e4m3fn
-              and (qq or q.dtype == jnp.bfloat16))
+    inputs = [q_g, k_p, v_p, lengths, starts]
     if quantized:
-        # lane-major [B,Hkv,1,N] scale rows (block_k is 128-aligned above)
-        for sc, fast in ((k_scale, k_fast), (v_scale, v_fast)):
-            sc = sc.astype(jnp.float32)
-            if fast:
-                sc = sc * FP8_SHIFT  # undo the shift-cast's 2^-120
-            sc = pad_to_block(sc[:, :, None, :], 3, block_k, value=1.0)
-            inputs.append(sc)
-            in_specs.append(pl.BlockSpec(
-                (1, 1, 1, block_k),
-                lambda bb, hh, ik, len_ref, win_ref: (
-                    bb, hh, 0, clamp_ik(ik, len_ref, win_ref, bb))))
-    if qq:
-        inputs.append(sq_in)
-        in_specs.append(pl.BlockSpec(
-            (1, 1, g_pad, 1),
-            lambda bb, hh, ik, len_ref, win_ref: (bb, hh, 0, 0)))
-
-    kernel = functools.partial(
-        _decode_kernel, scale=scale, block_k=block_k,
-        quantized=quantized, k_fast=k_fast, v_fast=v_fast, qq=qq,
-        windowed=windowed, window_cap=window)
+        for sc in (k_scale, v_scale):
+            if sc.shape != (b, h_kv, max_n):
+                raise ValueError(
+                    f"scale shape {sc.shape} != {(b, h_kv, max_n)}")
+            inputs.append(pad_to_block(sc.astype(jnp.float32), 2, bk))
+            in_specs.append(pl.BlockSpec((None, None, max_np),
+                                         lambda s, bb, hh: (bb, hh, 0)))
 
     o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(b, h_kv, nblk),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((1, 1, g_pad, d),
-                             lambda bb, hh, ik, len_ref, win_ref: (
-                                 bb, hh, 0, 0)),
-                pl.BlockSpec((1, 1, g_pad, 1),
-                             lambda bb, hh, ik, len_ref, win_ref: (
-                                 bb, hh, 0, 0)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((g_pad, 128), jnp.float32),
-                pltpu.VMEM((g_pad, 128), jnp.float32),
-                pltpu.VMEM((g_pad, d), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h_kv, g_pad, d), out_dt),
-            jax.ShapeDtypeStruct((b, h_kv, g_pad, 1), jnp.float32),
+        functools.partial(_decode_kernel, scale2=scale * LOG2E,
+                          block_k=bk, tiles_per_split=per_split,
+                          quantized=quantized),
+        grid=(splits, b, h_kv),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, g_pad, dp),
+                         lambda s, bb, hh: (s, bb, hh, 0, 0)),
+            pl.BlockSpec((None, None, None, g_pad),
+                         lambda s, bb, hh: (s, bb, hh, 0)),
         ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            # decode streams big KV blocks; Mosaic's default 16 MiB scoped
-            # VMEM caps block_k at 8k bf16 (docs/MEMO.md)
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(lengths, win_arr, *inputs)
-
-    o = o[:, :, :group].reshape(b, h, d)
-    lse = lse[:, :, :group, 0].reshape(b, h)
-    return o, lse
+        out_shape=[
+            jax.ShapeDtypeStruct((splits, b, h_kv, g_pad, dp), jnp.float32),
+            jax.ShapeDtypeStruct((splits, b, h_kv, g_pad), jnp.float32),
+        ],
+        **triton_call_kwargs("decode_attention", num_warps=4,
+                             num_stages=NUM_STAGES),
+    )(*inputs)
+    o, lse = merge_partials(o, lse, axis=0)
+    o = o[:, :, :group, :d].reshape(b, h, d).astype(q.dtype)
+    return o, lse[:, :, :group].reshape(b, h)

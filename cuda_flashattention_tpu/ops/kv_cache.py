@@ -1,14 +1,14 @@
 """KV-cache manager: preallocated, optionally quantized, append + decode.
 
-The "cache manager" subsystem of the north star (BASELINE.json: "KV
-quantize/dequantize packing in the cache manager"). No reference analog
-(the CUDA ladder has no inference loop); designed TPU-first:
+The cache-manager subsystem: KV quantize/dequantize packing in the cache
+manager. No reference analog
+(the CUDA ladder has no inference loop):
 
   * storage is preallocated to max_len (static shapes — XLA requirement),
-    appended into with `lax.dynamic_update_slice` (in-place under jit when
+    appended into with `lax.dynamic_update_slice` (in place under jit when
     the cache is donated),
   * new tokens are quantized at append time (per-token absmax scales),
-  * reads go straight to the Pallas decode/prefill kernels which fuse the
+  * reads go straight to the decode/prefill kernels, which fuse the
     dequant (ops/decode.py, ops/flash_fwd.py).
 """
 
@@ -53,8 +53,7 @@ def init_cache(batch: int, heads_kv: int, max_len: int, d: int,
                qtype: Optional[str] = None,
                dtype=jnp.bfloat16) -> KVCache:
     """Allocate an empty cache. qtype in {None, "int8", "fp8", "mixed"}
-    ("mixed" = int8 K / fp8 V — the decode-serving sweet spot, see
-    ops/quant.py quantize_kv)."""
+    ("mixed" = int8 K / fp8 V, see ops/quant.py quantize_kv)."""
     shape = (batch, heads_kv, max_len, d)
     # k and v must be distinct buffers (not one aliased zeros array) or
     # donating the cache at a jit boundary fails with a double-donation.
@@ -131,21 +130,15 @@ def decode_step(
     scale: Optional[float] = None,
     block_k: Optional[int] = None,
     window: int = 0,
-    quantize_q: bool = False,
-    interpret: Optional[bool] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Attend one new query token q [B,H,d] against the live cache.
 
     Returns (o [B,H,d], lse [B,H]). The caller appends the token's K/V
     (usually BEFORE calling, so the token attends to itself).
-    `quantize_q=True` routes int8-K caches through the 2× int8-MXU QKᵀ
-    path (review r4: the wrapper previously dropped the kwarg, so the
-    serving stack could never reach the measured GQA-decode win).
     """
     b = q.shape[0]
     lengths = jnp.full((b,), cache.length, jnp.int32)
     return decode_attention(
         q, cache.k, cache.v, lengths,
         k_scale=cache.k_scale, v_scale=cache.v_scale,
-        scale=scale, block_k=block_k, window=window,
-        quantize_q=quantize_q, interpret=interpret)
+        scale=scale, block_k=block_k, window=window)

@@ -1,6 +1,6 @@
 """Golden oracle: exact softmax attention, forward and backward.
 
-TPU-native counterpart of the reference's CPU oracle
+Counterpart of the reference's CPU oracle
 (ref: src/util/naive_attention.h:7-161, src/00_naive_attention/main.cpp:8-38).
 Like the reference, the forward emits the log-sum-exp `L[i] = m_i + log(l_i)`
 per query row (ref: naive_attention.h:41-42) so the FlashAttention backward
@@ -8,14 +8,13 @@ can be validated against recomputed probabilities, and the backward
 materialises the full softmax Jacobian (ref: naive_attention.h:130-140).
 
 Written in plain jax.numpy with fp32 (optionally fp64) accumulation — this
-runs on CPU or TPU, is O(N^2) in memory, and is the correctness bar every
+runs on CPU or GPU, is O(N^2) in memory, and is the correctness bar every
 Pallas kernel in ops/ is compared against (tests mirror the reference's
 oracle-compare discipline, SURVEY.md §4).
 
-Every einsum is pinned to Precision.HIGHEST: on TPU the default fp32
-matmul precision is a reduced-pass MXU mode that drifts ~1e-3-class —
-an oracle that drifts with the backend is no oracle (the compiled-mode
-suite caught exactly this, r5).
+Every einsum is pinned to Precision.HIGHEST: on the GPU the default fp32
+matmul precision may be TF32, which keeps about three decimal digits —
+an oracle that drifts with the backend is no oracle.
 """
 
 from __future__ import annotations

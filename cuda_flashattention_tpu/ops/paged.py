@@ -3,22 +3,19 @@
 Production serving allocates KV cache in fixed-size PAGES shared by all
 sequences (vLLM-style) instead of one contiguous strip per sequence —
 no fragmentation, instant reuse, and sequence-length-independent
-allocation. No reference analog (the CUDA ladder has no serving layer);
-this is the TPU-native construction:
+allocation. No reference analog (the CUDA ladder has no serving layer):
 
   * the page pool is one array [n_pages, Hkv, page_size, d] (plus
     per-token scale pools when quantized),
   * each sequence's logical cache is a row of `page_table`
     [B, max_pages] holding physical page ids,
-  * the decode kernel's K/V BlockSpec index maps read the page table via
-    SCALAR PREFETCH — the grid walks logical pages and the index map
-    returns the physical page to DMA, so gather happens in the pipeline,
-    not as a materialised copy,
-  * past-the-end logical pages clamp to the last valid page id —
-    consecutive identical indices dedupe the DMA and `@pl.when` skips
-    the compute (same trick as ops/decode.py's dynamic lengths).
+  * decode gathers each sequence's pages through its table row into a
+    contiguous [B, Hkv, max_pages·page_size, d] view with `jnp.take` and
+    runs the contiguous decode kernel (ops/decode.py) on it; pages past
+    a sequence's length are gathered but never attended.
 
-The online-softmax math is identical to ops/decode.py.
+The paged cache is off the model's path today, so the gather copy is
+plain XLA rather than a kernel of its own.
 """
 
 from __future__ import annotations
@@ -30,90 +27,19 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from cuda_flashattention_tpu.ops.common import (
-    FP8_SHIFT,
-    NEG_INF,
-    cdiv,
-    default_interpret,
-    quantize_q_per_head,
-    resolve_scale,
-)
-from cuda_flashattention_tpu.ops.decode import (
-    attend_block,
-    decode_epilogue,
-    window_block_offset,
-)
+from cuda_flashattention_tpu.ops.decode import decode_attention
 
 
-def _paged_kernel(
-    lengths_ref,   # scalar prefetch: [B] int32
-    win_ref,       # scalar prefetch: [B] int32 per-seq windows
-    table_ref,     # scalar prefetch: [B, max_pages] int32
-    *refs,
-    scale: float,
-    page_size: int,
-    quantized: bool,
-    k_fast: bool,
-    v_fast: bool,
-    qq: bool,
-    windowed: bool,
-    window_cap: int,
-):
-    """Paged decode = the contiguous decode kernel body (ops/decode.py
-    attend_block/decode_epilogue) fed by block-table-gathered physical
-    pages instead of clamped contiguous blocks."""
-    refs = list(refs)
-    if quantized:
-        (q_ref, k_ref, v_ref, k_scale_ref, v_scale_ref) = refs[:5]
-        refs = refs[5:]
-    else:
-        (q_ref, k_ref, v_ref) = refs[:3]
-        refs = refs[3:]
-        k_scale_ref = v_scale_ref = None
-    sq_ref = None
-    if qq:
-        sq_ref = refs[0]
-        refs = refs[1:]
-    (o_ref, lse_ref, m_s, l_s, acc_s) = refs
-
-    b = pl.program_id(0)
-    ip = pl.program_id(2)
-    n_pages = pl.num_programs(2)
-    length = lengths_ref[b]
-    win = None
-    if windowed:
-        # grid index is window-relative; offset to the absolute logical
-        # page via the SAME helper the host's page_index map uses, so
-        # work is O(window) pages, not O(max_pages)
-        first, win = window_block_offset(length, win_ref[b], page_size,
-                                         window_cap)
-        ip = first + ip
-
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        m_s[...] = jnp.full_like(m_s, NEG_INF)
-        l_s[...] = jnp.zeros_like(l_s)
-        acc_s[...] = jnp.zeros_like(acc_s)
-
-    @pl.when(ip * page_size < length)
-    def _compute():
-        attend_block(q_ref, k_ref, v_ref, k_scale_ref, v_scale_ref,
-                     m_s, l_s, acc_s, col0=ip * page_size, length=length,
-                     win=win, scale=scale, quantized=quantized,
-                     k_fast=k_fast, v_fast=v_fast, sq_ref=sq_ref)
-
-    @pl.when(pl.program_id(2) == n_pages - 1)
-    def _epilogue():
-        decode_epilogue(o_ref, lse_ref, m_s, l_s, acc_s)
+def _gather_pages(pool: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
+    """pool [n_pages, Hkv, page_size, ...] gathered through table
+    [B, max_pages] into [B, Hkv, max_pages·page_size, ...]."""
+    g = jnp.take(pool, table, axis=0)    # [B, max_pages, Hkv, ps, ...]
+    g = jnp.moveaxis(g, 2, 1)            # [B, Hkv, max_pages, ps, ...]
+    return g.reshape(g.shape[:2] + (-1,) + g.shape[4:])
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("scale", "window", "quantize_q", "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("scale", "window"))
 def paged_decode_attention(
     q: jnp.ndarray,
     k_pages: jnp.ndarray,
@@ -125,8 +51,6 @@ def paged_decode_attention(
     scale: Optional[float] = None,
     window: int = 0,
     windows: Optional[jnp.ndarray] = None,
-    quantize_q: bool = False,
-    interpret: Optional[bool] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """One decode step over paged caches.
 
@@ -137,143 +61,27 @@ def paged_decode_attention(
     [n_pages, Hkv, page_size] for int8/fp8 storage.
 
     `window`/`windows` restrict attention to the last `window` live
-    tokens exactly as in ops/decode.py::decode_attention — off-window
-    pages are neither fetched nor computed (O(window) grid), and a
-    static `window` hard-caps the per-seq `windows` values.
+    tokens exactly as in ops/decode.py::decode_attention.
 
     Returns (o [B,H,d], lse [B,H]).
     """
-    b, h, d = q.shape
+    b = q.shape[0]
     n_pool, h_kv, page_size, _ = k_pages.shape
-    max_pages = page_table.shape[1]
-    if h % h_kv != 0:
-        raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
-    group = h // h_kv
-    scale = resolve_scale(scale, d)
-    interpret = default_interpret() if interpret is None else interpret
-    quantized = k_scale is not None
-    if quantized and v_scale is None:
-        raise ValueError("k_scale given without v_scale")
-
-    qq = (bool(quantize_q) and quantized
-          and k_pages.dtype == jnp.int8)
-    sq_in = None
-    out_dt = q.dtype
-    if qq:
-        q, sq = quantize_q_per_head(q, (-1,))
-        sq_in = (sq * scale).reshape(b, h_kv, group, 1)
-
-    g_pad = max(8, group)
-    q_g = q.reshape(b, h_kv, group, d)
-    if g_pad != group:
-        q_g = jnp.pad(q_g, ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-        if qq:
-            sq_in = jnp.pad(sq_in,
-                            ((0, 0), (0, 0), (0, g_pad - group), (0, 0)))
-
-    lengths = jnp.asarray(lengths, jnp.int32).reshape(b)
-    table = jnp.asarray(page_table, jnp.int32).reshape(b, max_pages)
-    window = int(window or 0)
-    windowed = window > 0 or windows is not None
-    n_grid = max_pages
-    if window:
-        n_grid = min(n_grid, cdiv(window, page_size) + 1)
-    if windowed:
-        win_arr = (jnp.asarray(windows, jnp.int32).reshape(b)
-                   if windows is not None
-                   else jnp.full((b,), window, jnp.int32))
-    else:
-        win_arr = jnp.zeros((b,), jnp.int32)  # prefetched but unused
-
-    def page_index(bb, hh, ip, len_ref, win_ref, tab_ref):
-        # clamp past-the-end logical pages to the last valid one:
-        # consecutive identical physical ids → the pipeline skips the DMA
-        last = jnp.maximum(pl.cdiv(len_ref[bb], page_size) - 1, 0)
-        if windowed:
-            # grid index is window-relative (same helper as the kernel)
-            first, _ = window_block_offset(len_ref[bb], win_ref[bb],
-                                           page_size, window)
-            ip = first + ip
-        return (tab_ref[bb, jnp.minimum(ip, last)], hh, 0, 0)
-
-    in_specs = [
-        pl.BlockSpec((1, 1, g_pad, d),
-                     lambda bb, hh, ip, len_ref, win_ref, tab_ref: (
-                         bb, hh, 0, 0)),
-        pl.BlockSpec((1, 1, page_size, d), page_index),
-        pl.BlockSpec((1, 1, page_size, d), page_index),
-    ]
-    inputs = [q_g, k_pages, v_pages]
-    # per-array fp8 shift-cast flags (mixed int8-K/fp8-V caches flag only
-    # V; the cast target must be bf16 — q's dtype, or forced under qq)
-    k_fast = (quantized and k_pages.dtype == jnp.float8_e4m3fn
-              and q.dtype == jnp.bfloat16)
-    v_fast = (quantized and v_pages.dtype == jnp.float8_e4m3fn
-              and (qq or q.dtype == jnp.bfloat16))
-    if quantized:
-        # scale pools carried [n_pages, Hkv, 1, page_size]: the (1, page)
-        # row block equals the array dims → legal at any page size
-        for sc, fast in ((k_scale, k_fast), (v_scale, v_fast)):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    table = jnp.asarray(page_table, jnp.int32).reshape(b, -1)
+    scales = {}
+    if k_scale is not None:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
             if sc.shape != (n_pool, h_kv, page_size):
                 raise ValueError(
                     f"scale pool shape {sc.shape} != "
                     f"{(n_pool, h_kv, page_size)}")
-            sc = sc.astype(jnp.float32)
-            if fast:
-                sc = sc * FP8_SHIFT  # undo the shift-cast's 2^-120
-            inputs.append(sc[:, :, None, :])
-            in_specs.append(pl.BlockSpec(
-                (1, 1, 1, page_size),
-                lambda bb, hh, ip, len_ref, win_ref, tab_ref: (
-                    page_index(bb, hh, ip, len_ref, win_ref, tab_ref)[0],
-                    hh, 0, 0)))
-
-    if qq:
-        inputs.append(sq_in)
-        in_specs.append(pl.BlockSpec(
-            (1, 1, g_pad, 1),
-            lambda bb, hh, ip, len_ref, win_ref, tab_ref: (bb, hh, 0, 0)))
-
-    kernel = functools.partial(
-        _paged_kernel, scale=scale, page_size=page_size,
-        quantized=quantized, k_fast=k_fast, v_fast=v_fast, qq=qq,
-        windowed=windowed,
-        window_cap=window)
-
-    o, lse = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(b, h_kv, n_grid),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((1, 1, g_pad, d),
-                             lambda bb, hh, ip, len_ref, win_ref, tab_ref: (
-                                 bb, hh, 0, 0)),
-                pl.BlockSpec((1, 1, g_pad, 1),
-                             lambda bb, hh, ip, len_ref, win_ref, tab_ref: (
-                                 bb, hh, 0, 0)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((g_pad, 128), jnp.float32),
-                pltpu.VMEM((g_pad, 128), jnp.float32),
-                pltpu.VMEM((g_pad, d), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h_kv, g_pad, d), out_dt),
-            jax.ShapeDtypeStruct((b, h_kv, g_pad, 1), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(lengths, win_arr, table, *inputs)
-
-    o = o[:, :, :group].reshape(b, h, d)
-    lse = lse[:, :, :group, 0].reshape(b, h)
-    return o, lse
+            scales[name] = _gather_pages(sc, table)
+    return decode_attention(
+        q, _gather_pages(k_pages, table), _gather_pages(v_pages, table),
+        jnp.asarray(lengths, jnp.int32).reshape(b), scale=scale,
+        window=window, windows=windows, **scales)
 
 
 # ---------------------------------------------------------------------------
@@ -438,20 +246,14 @@ def paged_append(cache: PagedKVCache, k_new: jnp.ndarray,
 def paged_decode_step(q: jnp.ndarray, cache: PagedKVCache,
                       scale: Optional[float] = None,
                       window: int = 0,
-                      windows: Optional[jnp.ndarray] = None,
-                      quantize_q: bool = False,
-                      interpret: Optional[bool] = None):
-    """Attend one query token per sequence against the paged cache.
-
-    Forwards the full paged_decode_attention surface (sliding windows,
-    per-seq dynamic windows, quantize_q) — the wrapper previously
-    dropped them, so windowed serving over the convenience API silently
-    attended the whole cache."""
+                      windows: Optional[jnp.ndarray] = None):
+    """Attend one query token per sequence against the paged cache,
+    forwarding the full paged_decode_attention surface (sliding windows,
+    per-seq dynamic windows)."""
     return paged_decode_attention(
         q, cache.k_pages, cache.v_pages, cache.page_table, cache.lengths,
         k_scale=cache.k_scale, v_scale=cache.v_scale, scale=scale,
-        window=window, windows=windows, quantize_q=quantize_q,
-        interpret=interpret)
+        window=window, windows=windows)
 
 
 def paged_bulk_append(cache: PagedKVCache, k_new: jnp.ndarray,
@@ -506,8 +308,7 @@ def paged_bulk_append(cache: PagedKVCache, k_new: jnp.ndarray,
 
 
 def paged_prefix_attention(q: jnp.ndarray, cache: PagedKVCache,
-                           scale: Optional[float] = None,
-                           interpret: Optional[bool] = None):
+                           scale: Optional[float] = None):
     """Attend a CHUNK of queries (q [B, H, C, d]) against the whole live
     paged cache (every cached token precedes the chunk, so the prefix is
     fully visible — no mask beyond the live length). Returns
@@ -515,13 +316,11 @@ def paged_prefix_attention(q: jnp.ndarray, cache: PagedKVCache,
     own causal self-attention (parallel.ring.combine_partials), i.e. the
     paged counterpart of models.transformer.prefill_chunk's prefix term.
 
-    Implementation: chunk rows fold into the paged decode kernel's row
-    dimension — the kernel is row-count agnostic since all rows share
-    the same visible key set."""
+    Implementation: chunk rows fold into the decode kernel's query-group
+    rows — all rows share the same visible key set."""
     b, h, c, d = q.shape
     o, lse = paged_decode_attention(
         q.reshape(b, h * c, d), cache.k_pages, cache.v_pages,
         cache.page_table, cache.lengths,
-        k_scale=cache.k_scale, v_scale=cache.v_scale, scale=scale,
-        interpret=interpret)
+        k_scale=cache.k_scale, v_scale=cache.v_scale, scale=scale)
     return o.reshape(b, h, c, d), lse.reshape(b, h, c)

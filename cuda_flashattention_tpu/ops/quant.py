@@ -1,18 +1,18 @@
 """Quantized (FP8 / INT8) KV storage with kernel-fused dequantisation.
 
-North-star extension (BASELINE.md / BASELINE.json): the reference is all
-fp32 and has no quantisation; this module adds weight-only-style KV-cache
-quantisation designed for TPU decode, where attention is HBM-bandwidth
-bound and shrinking the KV bytes 2× (int8/fp8) directly scales tokens/s.
+The reference is all fp32 and has no quantisation; this module adds
+KV-cache quantisation for decode, where attention is bound by memory
+bandwidth and halving the KV bytes (int8/fp8 against bf16) directly
+scales tokens/s.
 
 Scheme: per-token (per row of K and V, absmax over the head dim) fp32
-scales. Dequantisation never materialises in HBM — it is folded into the
-Pallas kernels' matmuls (ops/flash_fwd.py::_fwd_kernel, quantized=True):
+scales. Dequantisation never materialises in device memory — it is
+folded into the kernels' matmuls (ops/flash_fwd.py, ops/decode.py):
 
-    S = (Q · K_qᵀ) ⊙ k_scaleᵀ · sm_scale        (int8→bf16 cast is exact)
+    S = (Q · K_qᵀ) ⊙ k_scaleᵀ · sm_scale   (int8/fp8 → bf16 casts are exact)
     O += (P ⊙ v_scaleᵀ) · V_q
 
-Accuracy gates (BASELINE.md): output vs fp32 naive oracle within 1e-2 at
+Accuracy gates: output vs fp32 naive oracle within 1e-2 at
 fp8 (e4m3, 3 mantissa bits) and 1e-3 at int8 (7 significand bits);
 enforced by tests/test_quant.py.
 
@@ -21,7 +21,7 @@ Caveat (observed, by construction): when attention *scores* are huge
 quantisation — flips winners and the output error is unbounded relative to
 fp32. That is inherent to quantising K at degenerate softmax temperatures,
 not a property of the fused dequant (which is bit-exact vs materialised
-dequantisation up to MXU rounding; see test_kernel_exact_vs_dequantized).
+dequantisation up to matmul rounding; see test_kernel_exact_vs_dequantized).
 """
 
 from __future__ import annotations
@@ -73,8 +73,8 @@ def _pair_qtypes(qtype: str) -> Tuple[str, str]:
 class QuantizedKV:
     """A quantized K/V pair: values [B,H,N,d] (int8|fp8) + scales [B,H,N].
 
-    The cache-manager payload of the north star: K/V blocks live quantized
-    in HBM with per-token scales; kernels consume them directly.
+    The cache-manager payload: K/V blocks live quantized in device memory
+    with per-token scales; kernels consume them directly.
     """
 
     def __init__(self, k_q, k_scale, v_q, v_scale):
@@ -110,7 +110,7 @@ def quantize_tensor(x: jnp.ndarray, qtype: str = "int8",
                     axis: int = -1) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Absmax-quantize along `axis`; returns (values, scale with axis dropped).
 
-    A handful of fused VPU ops under jit (jitted here so the fp32
+    A handful of fused elementwise ops under jit (jitted here so the fp32
     intermediates fuse instead of materialising at cache scale) — no
     standalone kernel needed; the performance-critical direction (dequant)
     lives inside the attention kernels.
@@ -131,16 +131,11 @@ def quantize_kv(k: jnp.ndarray, v: jnp.ndarray,
                 qtype: str = "int8") -> QuantizedKV:
     """Quantize K/V [B,H,N,d] with per-token (row) scales.
 
-    `qtype="mixed"` stores K int8 and V fp8 — the fp8-serving decode
-    configuration: int8 K feeds the MXU's 2× int8 QKᵀ path with ZERO
-    in-kernel cast under `quantize_q` (K dequant was the exposed VPU
-    cost of fp8 decode at long context), while V stays e4m3 for
-    heavy-tailed value distributions where fp8's relative precision
-    beats int8's uniform grid (real attention V activations; on
-    uniform test data int8 measures tighter — see the per-mode gates in
-    tests/test_quant.py). Direct int8 quantisation of K is strictly
-    more accurate than the in-kernel fp8→int8 re-grid the prefill
-    kernel applies to fp8 K under quantize_q."""
+    `qtype="mixed"` stores K int8 and V fp8: int8's uniform grid suits
+    K, while e4m3's relative precision suits heavy-tailed value
+    distributions (real attention V activations; on uniform test data
+    int8 measures tighter — see the per-mode gates in
+    tests/test_quant.py). The kernels cast each array by its own dtype."""
     kt, vt = _pair_qtypes(qtype)
     k_q, k_scale = quantize_tensor(k, kt)
     v_q, v_scale = quantize_tensor(v, vt)
@@ -154,21 +149,12 @@ def flash_attention_quantized(
     causal: bool = False,
     kv_offset: int = 0,
     block_sizes: Optional[BlockSizes] = None,
-    interpret: Optional[bool] = None,
-    quantize_q: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """FA2 forward over a quantized KV pair; dequant fused in-kernel.
 
     Inference path (no VJP): the backward runs on unquantized tensors.
-    `quantize_q=True` additionally runs QKᵀ on the MXU's 2× int8 path
-    (per-head int8 Q; fp8 K re-grids onto int8 in-kernel) — see
-    flash_attention_forward's docstring for the accuracy trade.
     Returns (O, LSE) like flash_attention_forward.
     """
-    if block_sizes is None and jax.default_backend() == "tpu":
-        # int8/fp8 VMEM tiles need ≥32 sublanes.
-        block_sizes = BlockSizes(block_k=max(BlockSizes().block_k, 32))
     return flash_attention_forward(
         q, kv.k_q, kv.v_q, scale=scale, causal=causal, kv_offset=kv_offset,
-        block_sizes=block_sizes, interpret=interpret,
-        k_scale=kv.k_scale, v_scale=kv.v_scale, quantize_q=quantize_q)
+        block_sizes=block_sizes, k_scale=kv.k_scale, v_scale=kv.v_scale)

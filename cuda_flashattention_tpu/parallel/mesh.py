@@ -1,11 +1,11 @@
 """Mesh construction and distributed bootstrap.
 
-TPU-native counterpart of the reference's MPI+NCCL bootstrap layer
+Counterpart of the reference's MPI+NCCL bootstrap layer
 (ref: src/util/nccl_utils.h:29-103). The mapping, per SURVEY.md §2.4:
 
   MPI_Init + ncclCommInitRank (init_mpi_nccl, nccl_utils.h:68-93)
-      → jax.distributed.initialize() (one call; rank/size/coordinator
-        come from the TPU runtime or env) + jax.make_mesh
+      → jax.distributed.initialize() (one call; coordinator, process
+        count and id passed explicitly) + jax.make_mesh
   rank → device binding (cudaSetDevice(rank % n), :80-84)
       → implicit: each host owns its local devices; the mesh spans all
   ncclSend/Recv ring (ring_exchange*, :115-142)
@@ -30,8 +30,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Multi-host bootstrap (the `init_mpi_nccl` equivalent).
 
-    On Cloud TPU the arguments are discovered from the environment; pass
-    them explicitly for manual clusters. Safe to call more than once, and
+    Pass the coordinator address, process count and process id
+    explicitly (nothing discovers them on a GPU host). Safe to call more
+    than once, and
     a no-op for single-process runs with no coordinator configured.
     """
     global _DISTRIBUTED_INITIALIZED
@@ -54,8 +55,9 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
               devices=None) -> Mesh:
     """Build a Mesh over the given (or all) devices.
 
-    Axis order convention: put the fastest-communicating axis (ICI) last;
-    sequence-parallel ("sp") ring traffic should ride ICI, not DCN.
+    On one host every card reaches every other over NVLink at the same
+    rate, so the mesh shape follows the algorithm; across hosts put the
+    axis with the most traffic (usually "sp") inside a host.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     n = int(np.prod(axis_sizes))
@@ -68,7 +70,7 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
 
 def sequence_mesh(n_devices: Optional[int] = None,
                   axis_name: str = "sp") -> Mesh:
-    """1-axis mesh for sequence (ring/context) parallelism — the TPU
+    """1-axis mesh for sequence (ring/context) parallelism — the
     equivalent of the reference's one NCCL ring over N GPUs."""
     devs = jax.devices()
     n = n_devices or len(devs)

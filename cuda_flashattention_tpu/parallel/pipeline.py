@@ -1,7 +1,7 @@
 """Pipeline parallelism: GPipe-style microbatched layer pipelining.
 
 Completes the parallelism matrix (dp × tp × sp × pp; the reference has
-only sequence parallelism — SURVEY.md §2.4). Design is TPU-first:
+only sequence parallelism — SURVEY.md §2.4). Design:
 
   * stages live on a `pp` mesh axis; stage s holds layers
     [s·L/S, (s+1)·L/S) as a stacked pytree sharded on the layer axis,

@@ -12,7 +12,7 @@ ring (parallel/ring.py):
            runs plain local attention over the FULL sequence for its
            head subset, and one all-to-all converts back. Comm volume
            ~ 2·(N/s)·H·d per device, in two dense collectives that ride
-           ICI at full bandwidth. Requires H % n_shards == 0 (heads must
+           NVLink at full bandwidth. Requires H % n_shards == 0 (heads must
            shard); the ring has no such constraint — pick per topology.
 
 Differentiable for free: `jax.lax.all_to_all` is linear, so autodiff
@@ -47,7 +47,6 @@ def ulysses_attention(
     causal: bool = False,
     window: int = 0,
     block_sizes: Optional[BlockSizes] = None,
-    interpret: Optional[bool] = None,
     batch_axis: Optional[str] = None,
     segment_ids: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
@@ -121,7 +120,7 @@ def ulysses_attention(
             seg_kw = dict(q_segment_ids=ids, kv_segment_ids=ids)
         o = flash_attention(qh, kh, vh, scale=scale, causal=causal,
                             window=window, block_sizes=block_sizes,
-                            interpret=interpret, **seg_kw)
+                            **seg_kw)
         # back to sequence-sharded: split sequence, gather heads
         return jax.lax.all_to_all(o, axis_name, split_axis=2,
                                   concat_axis=1, tiled=True)

@@ -1,7 +1,7 @@
 """ctypes bridge to the native (C++/OpenMP) exact-attention oracle.
 
 The reference's oracle is native C++ (ref: src/util/naive_attention.h,
-compiled into every test main); this module keeps that property in the TPU
+compiled into every test main); this module keeps that property in the
 framework: `csrc/naive_attention.cpp` is built once with g++ -O3 -fopenmp
 into a cached shared library and exposed here with numpy-array wrappers.
 The JAX oracle (ops.naive) remains the differentiable/on-device reference;

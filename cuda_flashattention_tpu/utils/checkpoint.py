@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (SURVEY.md §5 marks it "not required
 for parity"); a training/serving framework needs it, so this thin layer
-wraps Orbax (the TPU-native checkpointer: async-friendly, sharding-aware
+wraps Orbax (JAX's checkpointer: async-friendly, sharding-aware
 — restores respect the arrays' target shardings on a mesh) with a
 fallback pure-numpy .npz path for environments without orbax.
 

@@ -1,6 +1,6 @@
 """Structured, process-prefixed logging.
 
-TPU-native counterpart of the reference's rank-prefixed progress prints
+Counterpart of the reference's rank-prefixed progress prints
 (ref: ring_attention_kernel.cu:201-202 prints "[Rank %d] step %d ...";
 colorized monitor output in scripts/monitor_gpu.py). Every record is
 prefixed `[pN]` with the jax process index so interleaved multi-host

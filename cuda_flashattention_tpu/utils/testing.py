@@ -1,6 +1,6 @@
 """Test utilities: tolerance comparison + deterministic fixtures.
 
-TPU-native counterpart of the reference's host test helpers
+Counterpart of the reference's host test helpers
 (ref: src/util/attention_helper.h:137-208). Keeps the reference's exact
 fixture styles (SURVEY.md §4): tiny hand-checkable integer matrices,
 seeded random at realistic sizes, and programmatic structured data.

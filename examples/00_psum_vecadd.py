@@ -1,6 +1,6 @@
 """Ladder stage 00 — sharded vector add + psum checksum.
 
-TPU-native counterpart of the reference's MPI vecadd smoke test
+Counterpart of the reference's MPI vecadd smoke test
 (ref: src/03_flash_attention_v2_ring/00_mpi_vecadd.cu:9-152): it proves
 process/mesh bootstrap, per-device work placement, kernel timing, and a
 cross-device reduction — before any attention enters the picture.

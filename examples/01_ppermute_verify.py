@@ -1,6 +1,6 @@
 """Ladder stage 01 — ring topology verification via ppermute.
 
-TPU-native counterpart of the reference's NCCL ring verifier
+Counterpart of the reference's NCCL ring verifier
 (ref: src/03_flash_attention_v2_ring/01_nccl_verify.cu:9-67): each rank
 fills a buffer with its own id, the buffer is passed around the ring
 n_devices times, and at every step each rank checks the buffer it holds

@@ -1,21 +1,18 @@
 """Ladder stage 02 — compute/communication overlap microbenchmark.
 
-TPU-native counterpart of the reference's dual-stream overlap template
+Counterpart of the reference's dual-stream overlap template
 (ref: src/03_flash_attention_v2_ring/02_overlap.cu:9-114): double-buffered
 KV blocks rotate around the ring WHILE a compute kernel chews on the
 resident block; after n steps the result must equal the sequential answer.
 
-On TPU there are no user-managed streams: the ppermute for step k+1 is
-issued before step k's matmul AND pinned to it with
-`jax.lax.optimization_barrier` — issuing alone is NOT enough: scheduled
-v5e HLO shows XLA draining a bare serial permute chain back-to-back
-before any compute (docs/MEMO.md #17). Wall-clock for the overlapped
-loop is printed like the reference's chrono timing (:61,94-101), and the
-real evidence is schedule-level: `scripts/check_ring_overlap.py`
-AOT-compiles the production ring for a v5e topology and asserts every
-hidable collective-permute start/done pair straddles a kernel — the
-`cudaDeviceSynchronize`-free equivalent of the reference's dual streams
-(:192-220) that a wall-clock eyeball can't prove.
+There are no user-managed streams: the ppermute for step k+1 is issued
+before step k's matmul AND pinned to it with
+`jax.lax.optimization_barrier`, since issuing alone lets XLA's scheduler
+drain a bare serial permute chain back-to-back before any compute
+(docs/MEMO.md #5). Wall-clock for the overlapped loop is printed like
+the reference's chrono timing (:61,94-101); whether a collective is
+really hidden is a question for a profiler trace of the ring on the
+cards (ROADMAP.md).
 """
 
 import _common  # noqa: F401
@@ -50,7 +47,7 @@ def main() -> int:
             if step < n_dev - 1:
                 # pin the transfer in flight DURING this step's compute
                 # (without this the scheduler drains the chain first —
-                # MEMO #17; same barrier as parallel/ring.py)
+                # MEMO #5; same barrier as parallel/ring.py)
                 nxt, acc = jax.lax.optimization_barrier((nxt, acc))
                 cur = nxt
         return acc

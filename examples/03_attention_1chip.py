@@ -1,6 +1,6 @@
 """Ladder stage 03 — single-chip FA2 vs naive oracle at ring scale.
 
-TPU-native counterpart of the reference's rank-0 sanity stage
+Counterpart of the reference's rank-0 sanity stage
 (ref: src/03_flash_attention_v2_ring/03_attention_1GPU.cu:9-100): before
 going distributed, prove the single-device kernel at the exact shape the
 ring test will use — seq=5096 (deliberately not tile-divisible), d=64,

@@ -1,6 +1,6 @@
 """Ladder stage 04 — full distributed ring attention vs the oracle.
 
-TPU-native counterpart of the reference's final ladder stage
+Counterpart of the reference's final ladder stage
 (ref: src/03_flash_attention_v2_ring/04_ring_attention.cu:9-154):
 
   naive oracle on rank 0 + MPI_Bcast (:27-46)  → replicated oracle call

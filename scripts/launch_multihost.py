@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-process launcher — the framework's `mpirun` equivalent.
 
-TPU-native counterpart of the reference's MPI launch layer
+Counterpart of the reference's MPI launch layer
 (ref: scripts/modal_mpi.py:29-88 spawns `mpirun -np N ./output.bin`;
 scripts/local_mpi.sh:58-60 does the same locally). Here each "rank" is a
 python process that joins a jax.distributed cluster via a local
@@ -11,11 +11,13 @@ becomes the coordinator address handshake).
 
 Usage:
     python scripts/launch_multihost.py -np 2 examples/01_ppermute_verify.py
-    python scripts/launch_multihost.py -np 4 examples/04_ring_attention.py
+    python scripts/launch_multihost.py -np 4 --gpus examples/04_ring_attention.py
 
-On a real TPU pod slice this script is unnecessary: the TPU runtime
-launches one process per host and `jax.distributed.initialize()` discovers
-everything — run the example directly on each host instead.
+By default each process exposes `--devices-per-proc` virtual CPU
+devices. With `--gpus` each process gets exactly one card of the host
+(CUDA_VISIBLE_DEVICES = its process id), since a JAX process reserves
+most of every card it can see. One process driving all cards of a host
+needs no launcher at all.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ def main() -> int:
     ap.add_argument("-np", type=int, default=2, help="number of processes")
     ap.add_argument("--devices-per-proc", type=int, default=1,
                     help="virtual CPU devices per process")
+    ap.add_argument("--gpus", action="store_true",
+                    help="one GPU per process instead of CPU devices")
     ap.add_argument("script", help="example/test script to launch")
     ap.add_argument("args", nargs=argparse.REMAINDER)
     opts = ap.parse_args()
@@ -50,12 +54,19 @@ def main() -> int:
             "CFA_COORD": coord,
             "CFA_NPROC": str(opts.np),
             "CFA_PID": str(pid),
+        })
+        if opts.gpus:
+            env.update({"CUDA_VISIBLE_DEVICES": str(pid),
+                        "JAX_PLATFORMS": "cuda"})
+        else:
             # each process exposes its own virtual CPU devices; the
             # global mesh spans np * devices_per_proc devices
-            "XLA_FLAGS": (env.get("XLA_FLAGS", "") +
-                          " --xla_force_host_platform_device_count="
-                          f"{opts.devices_per_proc}").strip(),
-        })
+            env.update({
+                "JAX_PLATFORMS": "cpu",
+                "XLA_FLAGS": (env.get("XLA_FLAGS", "") +
+                              " --xla_force_host_platform_device_count="
+                              f"{opts.devices_per_proc}").strip(),
+            })
         p = subprocess.Popen(
             [sys.executable, opts.script, *opts.args], env=env,
             stdout=None if pid == 0 else subprocess.DEVNULL,

@@ -2,8 +2,8 @@
 # Ladder stage selector — counterpart of the reference's run.sh
 # (ref: src/03_flash_attention_v2_ring/run.sh:10-27 maps ./run.sh [0-4] to
 # one Modal function per stage). Stages run on a virtual 8-device CPU mesh
-# by default; set CFA_EXAMPLES_TPU=1 to run single-chip stages on the TPU,
-# or use scripts/launch_multihost.py for real multi-process execution.
+# by default; set JAX_PLATFORMS=cuda to run them on the host's GPUs, or
+# use scripts/launch_multihost.py for real multi-process execution.
 #
 # Usage: ./scripts/run_ladder.sh [0|1|2|3|4|5|6|all]
 set -euo pipefail
@@ -18,7 +18,6 @@ declare -a STAGES=(
   "examples/04_ring_attention.py"
   "examples/05_generate.py"
   "examples/06_paged_serving.py"
-  "examples/07_device_ring.py"
 )
 
 run_stage() {

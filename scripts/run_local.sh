@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Local (CPU, no TPU needed) test driver — counterpart of the reference's
+# Local (CPU, no GPU needed) test driver — counterpart of the reference's
 # local runners (ref: scripts/local_gpu.sh, scripts/local_mpi.sh). Pallas
 # kernels run in interpreter mode; multi-chip paths run on a virtual
 # 8-device CPU mesh (tests/conftest.py sets this up).

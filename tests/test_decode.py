@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cuda_flashattention_tpu.ops import decode
 from cuda_flashattention_tpu.ops.decode import decode_attention
 from cuda_flashattention_tpu.ops.kv_cache import (
     KVCache,
@@ -138,22 +139,18 @@ def test_cache_append_overflow_raises():
 
 
 def test_decode_windows_exceeding_static_cap():
-    """Per-seq `windows` above the static `window` must be CAPPED, not
-    silently truncate the visited grid (the O(window) grid only covers
-    cdiv(window,block_k)+1 blocks — an uncapped larger dynamic window
-    would offset past the newest blocks and skip them)."""
+    """Per-seq `windows` above the static `window` are CAPPED by it;
+    `windows` alone honours any value (≥ length means no window)."""
     import numpy as np
     rng = np.random.default_rng(11)
     k = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 256, 32)), jnp.float32)
     v = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 256, 32)), jnp.float32)
     q = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 32)), jnp.float32)
     lengths = jnp.asarray([256], jnp.int32)
-    # HIGHEST matmul precision: the 1e-5 bars assume fp32 matmuls;
-    # on-TPU default precision drifts ~1e-3-class (r5)
+    # HIGHEST matmul precision: the 1e-5 bars assume fp32 matmuls
     with jax.default_matmul_precision("highest"):
         o, _ = decode_attention(q, k, v, lengths, block_k=64, window=64,
-                                windows=jnp.asarray([256], jnp.int32),
-                                interpret=True)
+                                windows=jnp.asarray([256], jnp.int32))
         # effective window = min(256, 64) = 64 → last 64 tokens
         o_ref, _ = naive_attention(q[:, :, None, :], k[:, :, 192:],
                                    v[:, :, 192:])
@@ -161,39 +158,40 @@ def test_decode_windows_exceeding_static_cap():
         # windows WITHOUT a static cap keeps the full grid and honours
         # any value (>= length means no window)
         o2, _ = decode_attention(q, k, v, lengths, block_k=64,
-                                 windows=jnp.asarray([256], jnp.int32),
-                                 interpret=True)
+                                 windows=jnp.asarray([256], jnp.int32))
         o_full, _ = naive_attention(q[:, :, None, :], k, v)
         assert_close(o2, o_full[:, :, 0], 1e-5, "uncapped dynamic window")
 
 
-def test_decode_quantize_q():
-    """int8 KV + per-head int8 Q decode (2x-MXU QK, no K cast) matches
-    the dequantized oracle; fp8 caches ignore the flag (documented)."""
-    import numpy as np
-    from cuda_flashattention_tpu.ops.quant import quantize_kv
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_decode_split_combine(n_splits, monkeypatch):
+    """Split-K decode: each split's partial (o, lse) merged in log space
+    equals one pass over the cache, for splits that cover the live range
+    partially, wholly or not at all (length 1 leaves all but one split
+    empty), over an int8 cache with GQA."""
     rng = np.random.default_rng(13)
-    k = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 32)), jnp.float32)
-    v = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 32)), jnp.float32)
-    q = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 8, 32)), jnp.float32)
+    k = jnp.asarray(rng.uniform(-0.5, 0.5, (3, 2, 200, 32)), jnp.float32)
+    v = jnp.asarray(rng.uniform(-0.5, 0.5, (3, 2, 200, 32)), jnp.float32)
+    q = jnp.asarray(rng.uniform(-0.5, 0.5, (3, 8, 32)), jnp.float32)
     kv = quantize_kv(k, v, "int8")
     kd, vd = kv.dequantize()
-    lengths = jnp.asarray([150, 200], jnp.int32)
+    lengths = jnp.asarray([150, 200, 1], jnp.int32)
+    # 3·2 programs a split; 13 tiles of 16 make exactly n_splits splits
+    monkeypatch.setattr(decode, "TARGET_PROGRAMS", 6 * n_splits)
+    jax.clear_caches()
+    assert decode.decode_splits(200, 16, 6)[0] == n_splits
     o, lse = decode_attention(q, kv.k_q, kv.v_q, lengths,
                               k_scale=kv.k_scale, v_scale=kv.v_scale,
-                              quantize_q=True, interpret=True)
-    for i, ln in enumerate([150, 200]):
-        o_ref, _ = naive_attention(
-            q[i:i + 1, :, None, :], jnp.repeat(kd[i:i + 1, :, :ln], 4, 1),
-            jnp.repeat(vd[i:i + 1, :, :ln], 4, 1))
-        assert_close(o[i:i + 1], o_ref[:, :, 0], 5e-3,
-                     f"decode quantize_q len={ln}")
+                              block_k=16)
+    jax.clear_caches()
+    o_ref, lse_ref = _oracle_decode(q, jnp.repeat(kd, 4, 1),
+                                    jnp.repeat(vd, 4, 1), lengths)
+    assert_close(o, o_ref, 1e-5, f"O splits={n_splits}")
+    assert_close(lse, lse_ref, 1e-5, f"LSE splits={n_splits}")
 
 
 def test_decode_fp8_bf16_q():
-    """bf16 q + fp8 cache: the 5-op shift-cast branch (k_fast/v_fast)
-    engages — no decode test used bf16 q before, so the branch had zero
-    suite coverage (ADVICE r2)."""
+    """bf16 q + fp8 cache: fp8 tiles cast to bf16 in-kernel."""
     rng = np.random.default_rng(17)
     k = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 64)), jnp.bfloat16)
     v = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 64)), jnp.bfloat16)
@@ -210,12 +208,11 @@ def test_decode_fp8_bf16_q():
     assert_close(o.astype(jnp.float32), o_ref, 1e-2, "O (fp8 bf16-q)")
 
 
-@pytest.mark.parametrize("qq", [False, True])
+@pytest.mark.parametrize("n_splits", [None, 3])
 @pytest.mark.parametrize("qdt", [jnp.float32, jnp.bfloat16])
-def test_decode_mixed_cache(qq, qdt):
-    """Mixed int8-K/fp8-V cache (ops/quant.py "mixed"): int8 K rides the
-    2x-MXU path under quantize_q with zero K cast, V keeps e4m3
-    precision via the shift-cast (bf16 q) or the rebias cast (fp32 q)."""
+def test_decode_mixed_cache(n_splits, qdt, monkeypatch):
+    """Mixed int8-K/fp8-V cache (ops/quant.py "mixed"): each array is cast
+    by its own dtype in-kernel, whatever the split count."""
     rng = np.random.default_rng(19)
     k = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 32)), qdt)
     v = jnp.asarray(rng.uniform(-0.5, 0.5, (2, 2, 200, 32)), qdt)
@@ -225,14 +222,18 @@ def test_decode_mixed_cache(qq, qdt):
     assert kv.k_q.dtype == jnp.int8 and kv.v_q.dtype == jnp.float8_e4m3fn
     kd, vd = kv.dequantize()
     lengths = np.array([130, 200], np.int32)
+    if n_splits:
+        monkeypatch.setattr(decode, "TARGET_PROGRAMS", 4 * n_splits)
+    jax.clear_caches()
     o, _ = decode_attention(q, kv.k_q, kv.v_q, lengths,
                             k_scale=kv.k_scale, v_scale=kv.v_scale,
-                            quantize_q=qq, block_k=128)
+                            block_k=16)
+    jax.clear_caches()
     o_ref, _ = _oracle_decode(
         q.astype(jnp.float32), jnp.repeat(kd, 2, 1).astype(jnp.float32),
         jnp.repeat(vd, 2, 1).astype(jnp.float32), lengths)
     assert_close(o.astype(jnp.float32), o_ref, 1e-2,
-                 f"O (mixed qq={qq})")
+                 f"O (mixed splits={n_splits})")
 
 
 def test_cache_append_overflow_checkify():
@@ -260,39 +261,30 @@ def test_cache_append_overflow_checkify():
     assert int(out.length) == 6
 
 
-def test_default_block_k_resolution():
-    """The block_k=None adaptive default (review r3): 32k wide blocks
-    ONLY for fp8-ish caches on the bf16 shift-cast path at long
-    un-windowed context — fp32-q fp8 would OOM VMEM at 32k, and windowed
-    grids would stream ~4x the bytes per step."""
-    from cuda_flashattention_tpu.ops.decode import default_decode_block_k
+def test_decode_tile_and_split_resolution():
+    """The cache tile is a power of two ≥ 16 that divides the cache when
+    one does (no per-step padding copy); the split count aims at
+    TARGET_PROGRAMS programs and never exceeds the tile count."""
+    from cuda_flashattention_tpu.ops.decode import (
+        TARGET_PROGRAMS, decode_block_k, decode_splits)
 
-    f8, i8, bf, f32 = (jnp.float8_e4m3fn, jnp.int8, jnp.bfloat16,
-                       jnp.float32)
-    # the 1M fp8/bf16-q serving point gets the widest block (r4: 65536
-    # at >=256k capacity — mixed+qq measured 133.4 -> 137.1 tok/s on
-    # v5e); mixed too (V fp8); 131k capacity keeps 32768
-    assert default_decode_block_k(f8, f8, bf, False, 0, False, 1 << 20) == 65536
-    assert default_decode_block_k(i8, f8, bf, True, 0, False, 1 << 20) == 65536
-    assert default_decode_block_k(f8, f8, bf, False, 0, False, 131072) == 32768
-    # fp32 q (slow fp32-dequant path): VMEM-unsafe at 32k+ -> 8192
-    assert default_decode_block_k(f8, f8, f32, False, 0, False, 1 << 20) == 8192
-    # quantize_q forces bf16 compute even for fp32 q
-    assert default_decode_block_k(i8, f8, f32, True, 0, False, 1 << 20) == 65536
-    # windowed serving (static or per-seq) keeps the narrow block
-    assert default_decode_block_k(f8, f8, bf, False, 4096, False, 1 << 20) == 8192
-    assert default_decode_block_k(f8, f8, bf, False, 0, True, 1 << 20) == 8192
-    # short context / non-fp8 caches: narrow
-    assert default_decode_block_k(f8, f8, bf, False, 0, False, 16384) == 8192
-    assert default_decode_block_k(i8, i8, bf, True, 0, False, 1 << 20) == 8192
-    assert default_decode_block_k(bf, bf, bf, False, 0, False, 1 << 20) == 8192
+    assert decode_block_k(16384) == 64
+    assert decode_block_k(640, 128) == 128
+    assert decode_block_k(96) == 32       # the largest that divides
+    assert decode_block_k(200) == 16      # none divides: 16, cache padded
+    assert decode_block_k(5) == 16
+    assert decode_block_k(1 << 20, 512) == 512
+    # B·Hkv = 16 programs a split: 33 splits are asked for, and 256
+    # tiles split evenly into 32 splits of 8 (no empty split)
+    assert -(-TARGET_PROGRAMS // 16) == 33
+    assert decode_splits(16384, 64, 16) == (32, 8)
+    assert decode_splits(640, 128, 32) == (5, 1)     # capped by tiles
+    assert decode_splits(1 << 20, 64, 16) == (33, 497)
 
 
 def test_wide_block_default_end_to_end():
-    """bf16-q fp8 decode at max_n >= 65536 resolves block_k=None to
-    32768 — run that configuration end-to-end (interpret) so the wide
-    block's grid/padding/scale-layout logic is exercised, not just the
-    resolver."""
+    """A large fp8 cache holding a short live context: most splits see
+    nothing and must drop out of the merge."""
     rng = np.random.default_rng(11)
     b, hkv, h, max_n, d = 1, 1, 4, 65536, 64
     live = 300

@@ -20,7 +20,6 @@ STAGES = [
     "examples/04_ring_attention.py",
     "examples/05_generate.py",
     "examples/06_paged_serving.py",
-    "examples/07_device_ring.py",
 ]
 
 

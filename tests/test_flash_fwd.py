@@ -6,7 +6,6 @@ cases, seeded random at the reference's exact shapes (512x64, ref:
 non-divisible edge sizes.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,12 +19,6 @@ from cuda_flashattention_tpu.utils.testing import (
     random_qkv,
 )
 
-# Compiled fp32 matmuls on the MXU run bf16-pass by default (~2e-3
-# relative — MEMO #29), so fp32 agreement bars calibrated on CPU need
-# platform-aware headroom; the reference's own PASS gate is 5e-3.
-ON_TPU = jax.default_backend() == "tpu"
-
-
 def _run(q, k, v, tol=5e-3, lse_tol=1e-2, **kw):
     o, lse = flash_attention_forward(q, k, v, **kw)
     o_ref, lse_ref = naive_attention(
@@ -38,8 +31,7 @@ def _run(q, k, v, tol=5e-3, lse_tol=1e-2, **kw):
 def test_identity_4x4():
     # (ref: 02_fwd/main.cu:115-262 test_simple_attention, 4x4, scale=1)
     q, k, v = identity_qk_fixture(4, 4)
-    _run(q[None, None], k[None, None], v[None, None],
-         tol=5e-3 if ON_TPU else 1e-3, scale=1.0)
+    _run(q[None, None], k[None, None], v[None, None], tol=1e-3, scale=1.0)
 
 
 def test_reference_shape_512x64():
@@ -112,170 +104,86 @@ def test_scale_override():
     _run(q, k, v, tol=5e-3, scale=1.0)
 
 
-def test_softmax_modes_agree():
-    """The three softmax strategies (bound default, bound_unchecked,
-    online) must agree on non-adversarial data — same kernel math, the
-    modes only trade the fallback machinery."""
-    import numpy as np
-    rng = np.random.default_rng(21)
-    q = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 192, 64)), jnp.float32)
-    k = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 200, 64)), jnp.float32)
-    v = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, 200, 64)), jnp.float32)
-    outs = {}
-    # HIGHEST matmul precision: the 1e-5 agreement bar assumes fp32
-    # matmuls; on-TPU default precision drifts ~1e-3-class (r5)
-    with jax.default_matmul_precision("highest"):
-        for mode in ("auto", "bound_unchecked", "online"):
-            o, lse = flash_attention_forward(q, k, v, causal=True,
-                                             softmax=mode, interpret=True)
-            outs[mode] = (o, lse)
-    agree = 5e-4 if ON_TPU else 1e-5  # TPU: transcendental rounding
-    for mode in ("bound_unchecked", "online"):
-        assert jnp.max(jnp.abs(outs[mode][0] - outs["auto"][0])) < agree
-        assert jnp.max(jnp.abs(outs[mode][1] - outs["auto"][1])) < agree
-    with pytest.raises(ValueError, match="softmax"):
-        flash_attention_forward(q, k, v, softmax="nope", interpret=True)
+def _oracle(q, k, v, **kw):
+    group = q.shape[1] // k.shape[1]
+    return naive_attention(q, jnp.repeat(k, group, 1),
+                           jnp.repeat(v, group, 1), **kw)
 
 
-def _adversarial_qkv(slack_log2, n=256, d=32, jitter=0.0, seed=3):
-    """Anti-aligned huge-norm Q/K whose score bound is loose by
-    ~`slack_log2` log2 units: q rides e0, k rides e1 (orthogonal), so
-    every score ≈ 0 while the Cauchy–Schwarz bound is ‖q‖·‖k‖·scale·log2e
-    ≈ slack_log2. `jitter` adds per-key e0 components spreading the true
-    scores over [-jitter, 0] (non-uniform weights, so bf16 subnormal loss
-    in the bound path is visible instead of cancelling)."""
-    rng = np.random.default_rng(seed)
-    scale = 1.0 / np.sqrt(d)
-    log2e = 1.4426950408889634
-    a = np.sqrt(slack_log2 / (scale * log2e))
-    q = np.zeros((1, 1, n, d), np.float32)
-    k = np.zeros((1, 1, n, d), np.float32)
-    q[..., 0] = a
-    k[..., 1] = a
-    if jitter:
-        # score_j = a * delta_j * scale; spread log2-scores over
-        # [-jitter, 0]:  delta_j = -u_j * jitter / (a * scale * log2e)
-        u = rng.uniform(0.0, 1.0, n)
-        k[0, 0, :, 0] = -u * jitter / (a * scale * log2e)
-    v = rng.uniform(-0.5, 0.5, (1, 1, n, d)).astype(np.float32)
-    return jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-
-
-def test_bound_fallback_total_underflow():
-    """Catastrophic bound slack (> 126 log2 units): every weight
-    underflows to 0 in the bound kernel. bound_unchecked must emit the
-    degraded O=0/LSE=-inf rows (proving the data is adversarial — the
-    anti-vacuous guard), and the default path's lax.cond fallback must
-    re-run the online kernel and match it exactly (VERDICT r2 #5)."""
-    q, k, v = _adversarial_qkv(slack_log2=135.0)
-    o_unc, lse_unc = flash_attention_forward(
-        q, k, v, softmax="bound_unchecked", interpret=True)
-    assert float(jnp.max(jnp.abs(o_unc))) == 0.0, \
-        "fixture not adversarial: bound kernel did not underflow"
-    assert float(jnp.max(lse_unc)) < -1e29
-    o_on, lse_on = flash_attention_forward(
-        q, k, v, softmax="online", interpret=True)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mask", ["full", "causal", "window"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_forward_grid(dtype, mask, group):
+    """The Triton forward across dtype × mask × GQA, at a ragged length
+    and small tiles so every program sees masked edges, an unmasked
+    middle and a padded tail."""
+    h = 4
+    q, _, _ = random_qkv(1, h, 150, 150, 32, dtype=dtype)
+    _, k, v = random_qkv(1, h // group, 150, 150, 32, dtype=dtype, seed=3)
+    kw = dict(causal=mask != "full", window=40 if mask == "window" else 0)
     o, lse = flash_attention_forward(
-        q, k, v, softmax="auto", interpret=True,
-        _fallback_in_interpret=True)
-    assert float(jnp.max(jnp.abs(o - o_on))) < 1e-6
-    assert float(jnp.max(jnp.abs(lse - lse_on))) < 1e-5
+        q, k, v, block_sizes=BlockSizes(block_q=32, block_k=16), **kw)
+    o_ref, lse_ref = _oracle(q, k, v, **kw)
+    tol = 5e-3 if dtype == jnp.float32 else 2e-2
+    assert_close(o.astype(jnp.float32), o_ref, tol, f"O {mask} g={group}")
+    assert_close(lse, lse_ref, tol, f"LSE {mask} g={group}")
 
 
-def test_bound_fallback_slack_threshold():
-    """Bound slack ~124 log2 units WITH l > 0: the old l==0 trigger never
-    fires here, but weights sit in bf16-subnormal territory and the
-    bound path's output is measurably degraded (ADVICE r2 medium). The
-    widened slack trigger must catch it and restore the online result."""
-    q, k, v = _adversarial_qkv(slack_log2=124.0, jitter=3.0)
-    o_unc, lse_unc = flash_attention_forward(
-        q, k, v, softmax="bound_unchecked", interpret=True)
-    # l > 0: rows did NOT totally underflow (old trigger would not fire)
-    assert float(jnp.min(lse_unc)) > -1e29, \
-        "fixture overshot: rows hit total underflow, not the gray zone"
-    o_on, _ = flash_attention_forward(
-        q, k, v, softmax="online", interpret=True)
-    degraded = float(jnp.max(jnp.abs(o_unc - o_on)))
-    assert degraded > 1e-4, \
-        f"fixture not in the degradation zone (diff {degraded:.2e})"
+@pytest.mark.parametrize("nq,nk,kv_offset", [(48, 112, 64), (37, 70, 33),
+                                             (100, 100, 0)])
+def test_ragged_kv_offset(nq, nk, kv_offset):
+    """A query shard starting `kv_offset` rows into a ragged key range."""
+    q, k, v = random_qkv(1, 2, nq, nk, 16)
+    for window in (0, 24):
+        o, lse = flash_attention_forward(
+            q, k, v, causal=True, window=window, kv_offset=kv_offset,
+            block_sizes=BlockSizes(block_q=16, block_k=32))
+        o_ref, lse_ref = naive_attention(q, k, v, causal=True,
+                                         window=window, kv_offset=kv_offset)
+        assert_close(o, o_ref, 5e-3, f"O window={window}")
+        visible = np.asarray(lse_ref) > -1e29
+        assert_close(np.where(visible, lse, 0), np.where(visible, lse_ref, 0),
+                     5e-3, f"LSE window={window}")
+
+
+@pytest.mark.parametrize("qtype", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_quantized_kv_forward(qtype, causal):
+    """int8 / fp8 / mixed K-V loaded in storage dtype, dequantized by
+    their per-token scales in-kernel: equal to the kernel on the
+    dequantized values."""
+    from cuda_flashattention_tpu.ops.quant import quantize_kv
+    q, k, v = random_qkv(1, 2, 70, 90, 32)
+    kv = quantize_kv(k, v, qtype)
     o, lse = flash_attention_forward(
-        q, k, v, softmax="auto", interpret=True,
-        _fallback_in_interpret=True)
-    assert float(jnp.max(jnp.abs(o - o_on))) < 1e-6
+        q, kv.k_q, kv.v_q, k_scale=kv.k_scale, v_scale=kv.v_scale,
+        causal=causal, block_sizes=BlockSizes(block_q=32, block_k=32))
+    k_dq, v_dq = kv.dequantize()
+    o_ref, lse_ref = naive_attention(q, k_dq, v_dq, causal=causal)
+    assert_close(o, o_ref, 1e-4, f"O {qtype}")
+    assert_close(lse, lse_ref, 1e-4, f"LSE {qtype}")
 
 
-def test_bound_fallback_moderate_slack_accuracy():
-    """Fuzz at moderate slack (~60 log2 units, BELOW the 96 trigger): the
-    bound path must stay accurate on its own — the fallback is a cliff
-    guard, not a crutch (VERDICT r2 #5c)."""
-    q, k, v = _adversarial_qkv(slack_log2=60.0, jitter=3.0, seed=11)
-    # HIGHEST matmul precision: the 1e-4 agreement bar assumes fp32
-    # matmuls; on-TPU default precision drifts ~1e-3-class (r5)
-    with jax.default_matmul_precision("highest"):
-        o_unc, _ = flash_attention_forward(
-            q, k, v, softmax="bound_unchecked", interpret=True)
-        o_on, _ = flash_attention_forward(
-            q, k, v, softmax="online", interpret=True)
-    assert float(jnp.max(jnp.abs(o_unc - o_on))) < 1e-4
+def test_segments_forward_grid():
+    """Packed segments with GQA and a ragged tail: every tile masked."""
+    q, _, _ = random_qkv(1, 4, 90, 90, 16)
+    _, k, v = random_qkv(1, 2, 90, 90, 16, seed=7)
+    seg = jnp.asarray(np.repeat([0, 1, 2], [20, 45, 25])[None], jnp.int32)
+    o, _ = flash_attention_forward(
+        q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+        block_sizes=BlockSizes(block_q=16, block_k=16))
+    o_ref, _ = _oracle(q, k, v, causal=True, q_segment_ids=seg,
+                       kv_segment_ids=seg)
+    assert_close(o, o_ref, 5e-3, "O segments")
 
 
-def test_bound_fallback_ignores_legitimately_empty_rows():
-    """Rows that provably see no keys (ring-shard kv_offset making early
-    rows precede the shard, or a window lying wholly past the shard's
-    keys) emit l=0/LSE=-inf LEGITIMATELY — the in-kernel bad flags must
-    exclude them, and auto must agree with online without scrambling."""
-    rng = np.random.default_rng(23)
-    n, d = 128, 32
-    q = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, n, d)), jnp.float32)
-    k = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, n, d)), jnp.float32)
-    v = jnp.asarray(rng.uniform(-0.5, 0.5, (1, 2, n, d)), jnp.float32)
-    # kv_offset=-64: global rows -64..-1 precede every key -> empty.
-    # softmax="bound" pins the BOUND path: at this short causal shape
-    # "auto" now routes to online (r5) and would test nothing.
-    for kw in (dict(causal=True, kv_offset=-64),
-               # window 16 with kv_offset far past the shard: every row's
-               # window lies beyond the resident keys -> all rows empty
-               dict(causal=True, window=16, kv_offset=4 * n)):
-        # HIGHEST precision: 1e-6 agreement assumes fp32 matmuls (r5)
-        with jax.default_matmul_precision("highest"):
-            o, lse = flash_attention_forward(
-                q, k, v, softmax="bound", interpret=True,
-                _fallback_in_interpret=True, **kw)
-            o_on, lse_on = flash_attention_forward(
-                q, k, v, softmax="online", interpret=True, **kw)
-        agree = 5e-4 if ON_TPU else 1e-6
-        assert float(jnp.max(jnp.abs(o - o_on))) < agree, kw
-        assert float(jnp.max(jnp.abs(lse - lse_on))) < max(agree, 1e-5), kw
-    # anti-vacuous: the kv_offset=-64 case really does have empty rows
-    o, lse = flash_attention_forward(
-        q, k, v, causal=True, kv_offset=-64, softmax="bound",
-        interpret=True, _fallback_in_interpret=True)
-    assert float(jnp.max(jnp.abs(o[:, :, :64]))) == 0.0
-    assert float(jnp.max(lse[:, :, :64])) < -1e29
-
-
-def test_auto_softmax_routing_table():
-    """r5: "auto" routes short unquantized causal to the online path
-    (measured crossover ~5-6k rows) and everything else to bound; the
-    decision table is pinned here so a refactor can't silently change
-    the default."""
-    from cuda_flashattention_tpu.ops.flash_fwd import (
-        _ONLINE_SHORT_NQ, _resolve_use_bound)
-    base = dict(causal=True, quantized=False, segmented=False)
-    # short causal -> online; long causal -> bound
-    assert not _resolve_use_bound("auto", nq=_ONLINE_SHORT_NQ, **base)
-    assert _resolve_use_bound("auto", nq=_ONLINE_SHORT_NQ + 1, **base)
-    # non-causal stays bound at any length
-    assert _resolve_use_bound("auto", causal=False, quantized=False,
-                              segmented=False, nq=128)
-    # quantized causal stays bound even when short
-    assert _resolve_use_bound("auto", causal=True, quantized=True,
-                              segmented=False, nq=128)
-    # segments always go online
-    assert not _resolve_use_bound("auto", causal=False, quantized=False,
-                                  segmented=True, nq=1 << 20)
-    # explicit modes are never overridden
-    assert _resolve_use_bound("bound", nq=128, **base)
-    assert _resolve_use_bound("bound_unchecked", nq=128, **base)
-    assert not _resolve_use_bound("online", nq=1 << 20, causal=True,
-                                  quantized=False, segmented=False)
+@pytest.mark.parametrize("d", [4, 24, 128])
+def test_head_dim_padding(d):
+    """Head dims that are not a legal Triton tile width are zero-padded
+    by the wrapper and sliced back."""
+    q, k, v = random_qkv(1, 1, 40, 40, d)
+    o, lse = flash_attention_forward(q, k, v, causal=True)
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    o_ref, _ = naive_attention(q, k, v, causal=True)
+    assert_close(o, o_ref, 5e-3, f"O d={d}")

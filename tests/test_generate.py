@@ -46,18 +46,16 @@ def test_greedy_matches_uncached_forward(setup):
     assert (out == ref).all(), f"{out} vs {ref}"
 
 
-@pytest.mark.parametrize("qtype,qq", [("int8", False), ("fp8", False),
-                                      ("int8", True), ("mixed", True)])
-def test_quantized_cache_generates(setup, qtype, qq):
+@pytest.mark.parametrize("qtype,max_len", [("int8", None), ("fp8", None),
+                                           ("int8", 40), ("mixed", 40)])
+def test_quantized_cache_generates(setup, qtype, max_len):
     # quantisation perturbs logits; require a valid rollout and a high
     # token-level agreement with the exact path rather than equality.
-    # qq=True drives the quantize_q plumbing through
-    # generate -> decode_one -> decode_step (review r4: the serving
-    # stack previously could not reach the 2x int8-MXU decode path)
+    # An over-allocated cache (max_len) leaves most decode splits empty.
     params, prompt = setup
     n_new = 6
     out, logits = generate(params, prompt, CFG, max_new_tokens=n_new,
-                           qtype=qtype, quantize_q=qq)
+                           max_len=max_len, qtype=qtype)
     assert out.shape == (2, 7 + n_new)
     assert ((out >= 0) & (out < CFG.vocab_size)).all()
     assert jnp.isfinite(logits).all()

@@ -16,9 +16,9 @@ from cuda_flashattention_tpu.ops.naive import (
 )
 from cuda_flashattention_tpu.utils.testing import assert_close, seeded_random
 
-# MEMO #29: compiled fp32 matmuls are bf16-pass on the MXU
-_STOL = 5e-3 if jax.default_backend() == "tpu" else 1e-3
-_STOL_G = 5e-3 if jax.default_backend() == "tpu" else 2e-3
+# fp32 inputs: the kernels run fp32 dots at full precision
+_STOL = 1e-3
+_STOL_G = 2e-3
 
 
 def make_segs(b, n, sizes):

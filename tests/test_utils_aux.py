@@ -39,7 +39,7 @@ def test_annotate_is_cheap():
 
 def test_config_registry():
     knobs = config.all_knobs()
-    assert "TEST_TPU" in knobs and "COORD" in knobs
+    assert "PALLAS_INTERPRET" in knobs and "COORD" in knobs
     assert config.NPROC.as_int >= 1
     text = config.describe()
     assert "CFA_LOG_LEVEL" in text
@@ -121,20 +121,70 @@ def test_checkpoint_npz_structure_mismatch(tmp_path, monkeypatch):
     assert (out["a"] == 1).all()
 
 
-def test_time_scanned_array_and_pytree_carry():
-    """time_scanned must accept both a plain-array carry (decode o->q)
-    and a pytree carry (train params), pass side inputs as args (not
-    jaxpr constants), and report per-step time = total/inner."""
-    import jax
+def test_time_stats_median_and_quartiles():
+    """time_stats reports (median, q1, q3) of block_until_ready-bracketed
+    calls, for array and pytree results alike."""
     import jax.numpy as jnp
-    from cuda_flashattention_tpu.utils.timing import time_scanned
+    from cuda_flashattention_tpu.utils.timing import time_fn, time_stats
 
     w = jnp.full((4, 4), 0.5, jnp.float32)
-    t = time_scanned(lambda x, w_: x @ w_, jnp.ones((4, 4)), w,
-                     inner=3, iters=2, warmup=1)
+    med, q1, q3 = time_stats(lambda x: x @ w, jnp.ones((4, 4)), repeats=5,
+                             warmup=1)
+    assert 0.0 < q1 <= med <= q3
+    t = time_fn(lambda p: {"a": p["a"] * 2, "b": p["b"] + 1},
+                {"a": jnp.ones((2, 2)), "b": jnp.zeros((3,))}, iters=3,
+                warmup=1)
     assert t > 0.0
-    params = {"a": jnp.ones((2, 2)), "b": jnp.zeros((3,), jnp.bfloat16)}
-    t = time_scanned(
-        lambda p, s: {"a": p["a"] * s, "b": p["b"] + 1.0},
-        params, jnp.float32(0.9), inner=2, iters=2, warmup=1)
-    assert t > 0.0
+
+
+def test_device_peaks_h100_and_unknown_raises():
+    """The peaks table knows the H100 SXM; any other device kind is an
+    error, never a NaN or a default."""
+    import types
+    import pytest
+    from cuda_flashattention_tpu.utils.timing import device_peaks
+
+    h100 = device_peaks(types.SimpleNamespace(
+        device_kind="NVIDIA H100 80GB HBM3"))
+    assert h100["peak_tflops"] == 989.0 and h100["peak_hbm_gbps"] == 3350.0
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(types.SimpleNamespace(device_kind="cpu"))
+    with pytest.raises(KeyError):
+        device_peaks()  # the test host's CPU has no row
+
+
+def test_compile_cache_path_rule(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set; unset, the
+    cache is the checkout's .jax_cache, which git ignores."""
+    import os
+    import jax
+    from cuda_flashattention_tpu.utils import compile_cache as cc
+
+    assert cc.cache_dir({"JAX_COMPILATION_CACHE_DIR": "/x/y"}) == "/x/y"
+    default = cc.cache_dir({})
+    assert default == os.path.join(cc.CHECKOUT, ".jax_cache")
+    with open(os.path.join(cc.CHECKOUT, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cc.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before  # untouched
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    try:
+        assert cc.enable_compile_cache() == default
+        assert jax.config.jax_compilation_cache_dir == default
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_interpret_requires_opt_in_off_gpu(monkeypatch):
+    """Off the GPU a kernel call without CFA_PALLAS_INTERPRET=1 raises
+    instead of quietly running in the interpreter."""
+    import pytest
+    from cuda_flashattention_tpu.ops.common import interpret_mode
+
+    assert interpret_mode() is True  # conftest opted in
+    monkeypatch.setenv("CFA_PALLAS_INTERPRET", "0")
+    with pytest.raises(RuntimeError, match="CFA_PALLAS_INTERPRET"):
+        interpret_mode()
